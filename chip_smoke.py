@@ -6,28 +6,40 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build   — builds ``src/repro_torch/csrc/tap_window.cu`` with nvcc for
-             sm_90a and prints the build time and ``-Xptxas -v`` output;
-2. kernel  — the window kernel against its plain version
-             (``tap_window_ref``) on the same CUDA tensors, for every
-             wavelet x scheme x optimize x fuse x direction x tap_opt, on
-             batched non-smooth planes (37x53, 24x509) and on the main
-             path's plane shapes; float32 must agree bit for bit
+1. build   — builds ``src/repro_torch/csrc/tap_window.cu`` (the window
+             kernel K1) and ``pyramid_window.cu`` (the fused-pyramid
+             kernels K2/K3) with nvcc for sm_90a, both at once, and prints
+             the build times and the ``-Xptxas -v`` registers and spills;
+2. kernel  — each kernel against its plain version on the same CUDA
+             tensors: K1 (``tap_window_ref``) for every wavelet x scheme x
+             optimize x fuse x direction x tap_opt on batched non-smooth
+             planes (37x53, 24x509) and on the main path's plane shapes;
+             K2/K3 (``pyramid_forward_ref`` / ``pyramid_inverse_ref``) for
+             every wavelet x scheme x tap_opt x direction at 1-3 levels on
+             batched non-smooth images (3x296x424, 2x256x4072) at the
+             block the plan's guard picks.  float32 must agree bit for bit
              (max |diff| = 0), float16/bfloat16 I/O and bfloat16 compute
-             within the bounds below;
+             within the bounds below (the largest |diff| is printed);
 3. main    — ``repro_torch.dwt2`` / ``idwt2`` at B=8, 2048x2048, float32,
              3 levels, cdf97 on backend "cuda": ns-polyconv at fuse
-             "none" and "scheme", sep-lifting at "none".  The launch
-             counter must grow by exactly ``plan.launches`` per transform,
-             the round trip must hold to ROUNDTRIP_TOL and the
-             coefficients must agree with backend "torch" to CROSS_TOL;
-             a small input must agree with the filter-bank oracle;
+             "none", "scheme", "levels" and "pyramid", sep-lifting at
+             "none".  Each
+             path runs with every launch counter at 0 and must launch
+             exactly ``plan.launches`` kernels per transform (for
+             "pyramid": one K2 and one K3, ``plan.pyramid`` set); the
+             round trip must hold to ROUNDTRIP_TOL and the coefficients
+             must agree with backend "torch" to CROSS_TOL; "pyramid" must
+             equal "levels" bit for bit; a small input must agree with
+             the filter-bank oracle; a plan whose window cannot fit
+             (5 levels of sep-lifting) must fall back to "levels";
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
-             operations / 67 TFLOP/s); the library yardstick is one
+             operations / 67 TFLOP/s); K1's library yardstick is one
              F.conv2d of the composed filter bank of the fused level
-             (cuDNN with TF32 off);
+             (cuDNN with TF32 off); K2/K3 have none (no one PyTorch call
+             computes a multi-level pyramid), and are printed beside the
+             port's own fuse="levels" transform;
 5. result  — the card's name and power limit, one JSON line listing every
              kernel, and the last line
              {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -40,6 +52,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -62,14 +75,22 @@ SCHEMES = ("sep-conv", "sep-lifting", "sep-polyconv", "ns-conv",
            "ns-polyconv", "ns-lifting")
 MAIN = dict(batch=8, size=2048, levels=3, wavelet="cdf97")
 MAIN_CONFIGS = (("ns-polyconv", "none"), ("ns-polyconv", "scheme"),
-                ("sep-lifting", "none"))
+                ("sep-lifting", "none"), ("ns-polyconv", "levels"),
+                ("ns-polyconv", "pyramid"))
 EXPECTED_LAUNCHES = {("ns-polyconv", "none"): 6,
                      ("ns-polyconv", "scheme"): 3,
-                     ("sep-lifting", "none"): 24}
+                     ("sep-lifting", "none"): 24,
+                     ("ns-polyconv", "levels"): 3,
+                     ("ns-polyconv", "pyramid"): 1}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 REPS = 7
-TPU_KERNEL = "src/repro/kernels/polyphase.py:203"
+TPU_KERNELS = {"tap_window": "src/repro/kernels/polyphase.py:203",
+               "pyramid_forward": "src/repro/kernels/polyphase.py:385",
+               "pyramid_inverse": "src/repro/kernels/polyphase.py:493"}
+SOURCES = {"tap_window": "src/repro_torch/csrc/tap_window.cu",
+           "pyramid_forward": "src/repro_torch/csrc/pyramid_window.cu",
+           "pyramid_inverse": "src/repro_torch/csrc/pyramid_window.cu"}
 
 
 class SmokeFailure(RuntimeError):
@@ -120,19 +141,42 @@ class Timer:
         return statistics.median(times)
 
 
-def phase_build(TW, cpu):
+def kernels(TW, PW):
+    """Every kernel of the main path: name -> its launch counter."""
+    return {"tap_window": TW.KERNEL, "pyramid_forward": PW.FORWARD,
+            "pyramid_inverse": PW.INVERSE}
+
+
+def phase_build(TW, PW, cpu):
     print("== phase 1: build", flush=True)
     if cpu:
-        print("cpu rehearsal: kernel not built (no nvcc on this machine)")
+        print("cpu rehearsal: kernels not built (no nvcc on this machine)")
         return
+    libs = (TW.LIBRARY, PW.LIBRARY)
+    errors = []
+
+    def build(lib):
+        try:
+            lib.library()
+        except Exception as e:      # re-raised below, in the main thread
+            errors.append(e)
+
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    TW.KERNEL.library()
-    print(f"built {TW.KERNEL.path} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {TW.KERNEL.build_seconds})")
-    for line in TW.KERNEL.ptxas_log.splitlines():
-        if any(k in line for k in ("Compiling", "registers", "spill",
-                                   "smem")):
-            print("  ptxas:", line.strip())
+    threads = [threading.Thread(target=build, args=(lib,)) for lib in libs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    print(f"built in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        print(f"  {lib.path} (nvcc {lib.build_seconds} s)")
+        for line in lib.ptxas_log.splitlines():
+            if any(k in line for k in ("Compiling", "registers", "spill",
+                                       "smem")):
+                print("    ptxas:", line.strip())
 
 
 def _planes(torch, gen, shape, dtype, device):
@@ -202,8 +246,79 @@ def phase_kernel(torch, C, TW, device, cpu, gen):
     return worst["float32"]
 
 
-def phase_main(torch, R, TW, device, cpu, gen):
-    """The port's main path; returns (launches counted, plans, x)."""
+def phase_pyramid_kernel(torch, R, PW, device, cpu, gen):
+    """K2/K3 vs their plain versions; returns the largest fp32 |diff| of
+    each."""
+    print("== phase 2b: fused-pyramid kernels vs plain versions", flush=True)
+    shapes = [(2, 40, 56)] if cpu else [(3, 296, 424), (2, 256, 4072)]
+    worst = {"pyramid_forward": 0.0, "pyramid_inverse": 0.0, "narrow": 0.0}
+    n_cases = 0
+
+    def compare(name, got, want, exact, what):
+        nonlocal n_cases
+        tol = KERNEL_TOL["float32" if exact else "narrow"]
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"{name} output {g.dtype} {tuple(g.shape)} vs plain "
+                  f"{w.dtype} {tuple(w.shape)} ({what})")
+            d = max_abs(g, w)
+            key = name if exact else "narrow"
+            worst[key] = max(worst[key], d)
+            check(rel_violation(g, w, **tol) <= 0,
+                  f"{name} disagrees with its plain version: max |diff| "
+                  f"{d} ({what})")
+        n_cases += 1
+
+    def run(wavelet, scheme, levels, tap_opt, shape, io, cdt):
+        spec = R.get_plan(
+            wavelet=wavelet, scheme=scheme, levels=levels, shape=shape,
+            dtype=str(io).replace("torch.", ""), backend="cuda",
+            fuse="pyramid", compute_dtype=cdt, tap_opt=tap_opt,
+            device=device, cache=R.PlanCache()).pyramid
+        if spec is None:
+            return False
+        what = (f"{wavelet} {scheme} L={levels} tap_opt={tap_opt} shape "
+                f"{shape} io {io} compute {cdt} block {spec.block}")
+        exact = io == torch.float32 and cdt == "float32"
+        x = torch.randn(shape, generator=gen).to(device=device, dtype=io)
+        ll, det = PW.pyramid_forward(spec.fwd_kernel, x)
+        rll, rdet = PW.pyramid_forward_ref(spec.fwd_kernel, x)
+        compare("pyramid_forward", [ll] + [d for t in det for d in t],
+                [rll] + [d for t in rdet for d in t], exact, what)
+        rec = PW.pyramid_inverse(spec.inv_kernel, ll, det)
+        compare("pyramid_inverse", [rec],
+                [PW.pyramid_inverse_ref(spec.inv_kernel, ll, det)], exact,
+                what)
+        return True
+
+    t0 = time.perf_counter()
+    skipped = []
+    for w, sch, levels, tap_opt, shape in itertools.product(
+            WAVELETS, SCHEMES, (1, 2, 3), ("off", "exact", "full"),
+            shapes):
+        if not run(w, sch, levels, tap_opt, shape, torch.float32,
+                   "float32"):
+            skipped.append((w, sch, levels, tap_opt, shape))
+    for sch, (io, cdt) in itertools.product(
+            ("ns-polyconv", "sep-lifting"),
+            ((torch.float16, "float32"), (torch.bfloat16, "float32"),
+             (torch.float32, "bfloat16"), (torch.bfloat16, "bfloat16"))):
+        check(run(MAIN["wavelet"], sch, MAIN["levels"], "full", shapes[-1],
+                  io, cdt), f"{sch} falls back at {shapes[-1]}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"{n_cases} fused-pyramid kernel/plain comparisons in "
+          f"{time.perf_counter() - t0:.1f} s: max |diff| float32 "
+          f"forward {worst['pyramid_forward']!r}, inverse "
+          f"{worst['pyramid_inverse']!r}, half-precision/bf16 "
+          f"{worst['narrow']!r}; {len(skipped)} configurations fell back "
+          f"to fuse='levels' (no kernel to compare): {skipped}")
+    return worst
+
+
+def phase_main(torch, R, TW, PW, device, cpu, gen):
+    """The port's main path, each configuration with every launch counter
+    at 0; returns (launches per kernel, plans, x)."""
     print("== phase 3: main path", flush=True)
     from repro_torch.kernels.ref import dwt2_ref
     b, n = (2, 64) if cpu else (MAIN["batch"], MAIN["size"])
@@ -218,26 +333,41 @@ def phase_main(torch, R, TW, device, cpu, gen):
         check(rel_violation(g, w, **CROSS_TOL["float32"]) <= 0,
               f"dwt2 disagrees with the filter-bank oracle: "
               f"{max_abs(g, w)}")
+    counters = kernels(TW, PW)
     plans = {}
-    TW.KERNEL.launches = 0
-    counted = 0
+    launched = {name: 0 for name in counters}
     for scheme, fuse in MAIN_CONFIGS:
         plan = R.get_plan(shape=tuple(x.shape), scheme=scheme, fuse=fuse,
                           backend="cuda", **common)
         plans[(scheme, fuse)] = plan
         check(plan.launches == EXPECTED_LAUNCHES[(scheme, fuse)],
               f"{scheme}/{fuse}: plan.launches {plan.launches}")
-        before = TW.KERNEL.launches
+        if fuse == "pyramid":
+            check(plan.pyramid is not None,
+                  f"{scheme}/pyramid fell back: {plan.fallback}")
+        # the path itself, every counter at 0 just before it
+        for k in counters.values():
+            k.launches = 0
         pyr = R.dwt2(x, scheme=scheme, fuse=fuse, backend="cuda", **common)
-        fwd = TW.KERNEL.launches - before
+        fwd = {name: k.launches for name, k in counters.items()}
         rec = R.idwt2(pyr, scheme=scheme, fuse=fuse, backend="cuda",
                       device=device, wavelet=wav)
-        inv = TW.KERNEL.launches - before - fwd
         if device.type == "cuda":
             torch.cuda.synchronize()
-            check(fwd == plan.launches and inv == plan.launches,
-                  f"{scheme}/{fuse}: counted {fwd} forward / {inv} inverse "
-                  f"launches, plan says {plan.launches}")
+        both = {name: k.launches for name, k in counters.items()}
+        for name in launched:
+            launched[name] += both[name]
+        n_fwd, n_all = sum(fwd.values()), sum(both.values())
+        if device.type == "cuda":
+            check(n_fwd == plan.launches and n_all == 2 * plan.launches,
+                  f"{scheme}/{fuse}: counted {n_fwd} forward / "
+                  f"{n_all - n_fwd} inverse launches, plan says "
+                  f"{plan.launches}")
+            if fuse == "pyramid":
+                check(fwd == {"tap_window": 0, "pyramid_forward": 1,
+                              "pyramid_inverse": 0}
+                      and both["pyramid_inverse"] == 1,
+                      f"pyramid launches {fwd} then {both}")
         shapes = [tuple(pyr.ll.shape)] + [tuple(d.shape) for det in
                                           pyr.details for d in det]
         want = [(b, n >> L, n >> L)] + [(b, n >> l, n >> l) for l in
@@ -254,28 +384,105 @@ def phase_main(torch, R, TW, device, cpu, gen):
         check(all(rel_violation(p, q, **CROSS_TOL["float32"]) <= 0
                   for p, q in zip(planes, ref_planes)),
               f"{scheme}/{fuse}: cuda vs torch backend off by {cross}")
-        print(f"{scheme:12s} fuse={fuse:6s} launches fwd {fwd} inv {inv} "
-              f"(plan {plan.launches}); round trip max |diff| "
-              f"{max_abs(rec, x)!r}; vs torch backend max |diff| {cross!r}")
+        extra = ""
+        if fuse == "pyramid":
+            lvl = R.dwt2(x, scheme=scheme, fuse="levels", backend="cuda",
+                         **common)
+            lvl_planes = [lvl.ll] + [d for det in lvl.details for d in det]
+            d_fwd = max(max_abs(p, q) for p, q in zip(planes, lvl_planes))
+            d_inv = max_abs(rec, R.idwt2(pyr, scheme=scheme, fuse="levels",
+                                         backend="cuda", device=device,
+                                         wavelet=wav))
+            check(d_fwd == 0 and d_inv == 0,
+                  f"pyramid vs levels on cuda: forward {d_fwd}, inverse "
+                  f"{d_inv}")
+            extra = (f"; vs fuse=levels max |diff| forward {d_fwd!r} "
+                     f"inverse {d_inv!r}; block {plan.pyramid.block}, smem "
+                     f"{plan.pyramid.smem_bytes} B")
+            del lvl, lvl_planes
+        print(f"{scheme:12s} fuse={fuse:7s} launches fwd {n_fwd} inv "
+              f"{n_all - n_fwd} (plan {plan.launches}); round trip max "
+              f"|diff| {max_abs(rec, x)!r}; vs torch backend max |diff| "
+              f"{cross!r}{extra}")
         del pyr, rec, ref, planes, ref_planes
-    counted = TW.KERNEL.launches
-    print(f"main path: {counted} window-kernel launches")
-    return counted, plans, x
+    print(f"main path launches: {launched}")
+    # the shared-memory guard: 5 levels of sep-lifting cannot fit
+    from repro_torch.engine import PYRAMID_COUNTERS
+    before = PYRAMID_COUNTERS["smem_fallbacks"]
+    deep = torch.randn((1, 256, 256), generator=gen).to(device)
+    plan = R.get_plan(shape=tuple(deep.shape), wavelet=wav, levels=5,
+                      scheme="sep-lifting", fuse="pyramid", backend="cuda",
+                      device=device, cache=R.PlanCache())
+    check(plan.pyramid is None and plan.launches == 5
+          and PYRAMID_COUNTERS["smem_fallbacks"] == before + 1,
+          f"5-level sep-lifting did not fall back: {plan.fallback}")
+    a = plan.execute(deep)
+    bb = R.dwt2(deep, wavelet=wav, levels=5, scheme="sep-lifting",
+                fuse="levels", device=device)
+    check(all(torch.equal(p, q) for p, q in
+              zip([a.ll] + [d for det in a.details for d in det],
+                  [bb.ll] + [d for det in bb.details for d in det])),
+          "fallback plan differs from fuse='levels'")
+    print(f"fallback: {plan.fallback}")
+    return launched, plans, x
 
 
-def phase_times(torch, R, PP, TW, CV, device, plans, x, timer):
-    """Per-launch and per-transform times; returns the kernels-line entry
-    measured on the fused level (ns-polyconv, fuse=scheme, level 0)."""
+def _time_transforms(torch, R, PP, device, plans, x, timer):
+    print("config,transform,backend,launches,ms,image_GB/s,model_bytes,"
+          "model_bound_ms")
+    b = x.shape[0]
+    times = {}
+    for (scheme, fuse), plan in plans.items():
+        common = dict(wavelet=MAIN["wavelet"], scheme=scheme, fuse=fuse,
+                      device=device)
+        if plan.pyramid is not None:
+            spec = plan.pyramid
+            model = {op: PP.pyramid_hbm_bytes(
+                sched, tuple(x.shape[-2:]), 4, spec.block).modelled * b
+                for op, sched in (("fwd", spec.fwd_sched),
+                                  ("inv", spec.inv_sched))}
+        else:
+            # modelled bytes of the kernel path: every launch's windows
+            # and outputs plus the split/merge copy, summed over the levels
+            model = {op: sum(PP.scheme_hbm_bytes(
+                getattr(spec, f"{op}_programs"), spec.image_shape, 4,
+                spec.block) for spec in plan.level_specs) * b
+                for op in ("fwd", "inv")}
+        for backend in ("cuda", "torch"):
+            pyr = R.dwt2(x, backend=backend, levels=MAIN["levels"], **common)
+            f_ms = timer.ms(lambda: R.dwt2(x, backend=backend,
+                                           levels=MAIN["levels"], **common),
+                            reps=5, warmup=1)
+            i_ms = timer.ms(lambda: R.idwt2(pyr, backend=backend, **common),
+                            reps=5, warmup=1)
+            times[(scheme, fuse, backend)] = (f_ms, i_ms)
+            n = plan.launches if backend == "cuda" else 0
+            gb = x.numel() * 4 / 1e6
+            for op, t_ms, key in (("dwt2", f_ms, "fwd"),
+                                  ("idwt2", i_ms, "inv")):
+                print(f"{scheme}/{fuse},{op},{backend},{n},{t_ms:.4f},"
+                      f"{gb / t_ms:.1f},{model[key]},"
+                      f"{model[key] / HBM_BYTES_PER_S * 1e3:.4f}")
+            del pyr
+    return times
+
+
+def phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer):
+    """Per-launch and per-transform times; returns the kernels-line
+    entries: K1 measured on the fused level (ns-polyconv, fuse=scheme,
+    level 0), K2/K3 on the main path's pyramid."""
     print("== phase 4: times (median of %d, CUDA events)" % REPS, flush=True)
     import torch.nn.functional as F
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("cudnn.allow_tf32 = False, cuda.matmul.allow_tf32 = False")
     print("config,level,launch,planes,halo,block,smem,kernel_ms,plain_ms,"
-          "bytes,GB/s,bound_ms,bound_by,ops")
+          "bytes,GB/s,bound_ms,bound_by,ops,term_evals")
     b = x.shape[0]
-    entry = None
+    entries = {}
     for (scheme, fuse), plan in plans.items():
+        if plan.pyramid is not None:
+            continue
         for spec in plan.level_specs:
             hp, wp = spec.plane_shape
             planes = _planes(torch, torch.Generator().manual_seed(7),
@@ -294,7 +501,8 @@ def phase_times(torch, R, PP, TW, CV, device, plans, x, timer):
                 print(f"{scheme}/{fuse},{spec.index},{i},{b}x{hp}x{wp},"
                       f"{win.halo},{win.block[0]}x{win.block[1]},"
                       f"{win.smem_bytes},{k_ms:.4f},{p_ms:.4f},{nbytes},"
-                      f"{nbytes / k_ms / 1e6:.1f},{bound:.4f},{by},{ops}")
+                      f"{nbytes / k_ms / 1e6:.1f},{bound:.4f},{by},{ops},"
+                      f"{win.term_evaluations((b, hp, wp))}")
                 if (scheme, fuse) == ("ns-polyconv", "scheme") \
                         and spec.index == 0:
                     conv = CV.lower_program_to_conv(win.program)
@@ -316,38 +524,59 @@ def phase_times(torch, R, PP, TW, CV, device, plans, x, timer):
                     print(f"library yardstick: F.conv2d {tuple(xp.shape)} * "
                           f"{tuple(wt.shape)} = {lib_ms:.4f} ms "
                           f"(max |diff| vs kernel {d!r})")
-                    entry = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                                 bound_by=by, library_ms=lib_ms)
+                    entries["tap_window"] = dict(
+                        ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+                        library_ms=lib_ms)
                     del xp, got, ours
             del planes
-    print("config,transform,backend,launches,ms,image_GB/s,model_bytes,"
-          "model_bound_ms")
-    for (scheme, fuse), plan in plans.items():
-        common = dict(wavelet=MAIN["wavelet"], scheme=scheme, fuse=fuse,
-                      device=device)
-        # modelled bytes of the kernel path: every launch's windows and
-        # outputs plus the split/merge copy, summed over the levels
-        model = {op: sum(PP.scheme_hbm_bytes(getattr(spec, f"{op}_programs"),
-                                             spec.image_shape, 4, spec.block)
-                         for spec in plan.level_specs) * b
-                 for op in ("fwd", "inv")}
-        for backend in ("cuda", "torch"):
-            pyr = R.dwt2(x, backend=backend, levels=MAIN["levels"], **common)
-            f_ms = timer.ms(lambda: R.dwt2(x, backend=backend,
-                                           levels=MAIN["levels"], **common),
-                            reps=5, warmup=1)
-            i_ms = timer.ms(lambda: R.idwt2(pyr, backend=backend, **common),
-                            reps=5, warmup=1)
-            n = plan.launches if backend == "cuda" else 0
-            gb = x.numel() * 4 / 1e6
-            for op, t_ms, key in (("dwt2", f_ms, "fwd"),
-                                  ("idwt2", i_ms, "inv")):
-                print(f"{scheme}/{fuse},{op},{backend},{n},{t_ms:.4f},"
-                      f"{gb / t_ms:.1f},{model[key]},"
-                      f"{model[key] / HBM_BYTES_PER_S * 1e3:.4f}")
-            del pyr
-    check(entry is not None, "fused level was not timed")
-    return entry
+    times = _time_transforms(torch, R, PP, device, plans, x, timer)
+    # the fused-pyramid kernels at the main path's pyramid
+    print("kernel,image,block,smem,kernel_ms,plain_ms,unique_bytes,"
+          "unique_GB/s,model_bytes,model_GB/s,bound_ms,bound_by,"
+          "bound_share,ops,term_evals,levels_ms")
+    plan = plans[("ns-polyconv", "pyramid")]
+    spec = plan.pyramid
+    h, w = x.shape[-2:]
+    pyr = R.dwt2(x, scheme="ns-polyconv", fuse="pyramid",
+                 wavelet=MAIN["wavelet"], levels=MAIN["levels"],
+                 device=device)
+    ll = pyr.ll.contiguous()
+    det = tuple(tuple(d.contiguous() for d in t) for t in pyr.details[::-1])
+    for name, pw, run, ref, levels_ms in (
+            ("pyramid_forward", spec.fwd_kernel,
+             lambda: PW.pyramid_forward(spec.fwd_kernel, x),
+             lambda: PW.pyramid_forward_ref(spec.fwd_kernel, x),
+             times[("ns-polyconv", "levels", "cuda")][0]),
+            ("pyramid_inverse", spec.inv_kernel,
+             lambda: PW.pyramid_inverse(spec.inv_kernel, ll, det),
+             lambda: PW.pyramid_inverse_ref(spec.inv_kernel, ll, det),
+             times[("ns-polyconv", "levels", "cuda")][1])):
+        k_ms = timer.ms(run)
+        p_ms = timer.ms(ref, reps=5, warmup=1)
+        nb = PP.pyramid_hbm_bytes(pw.sched, (h, w), 4, pw.block)
+        unique, modelled = nb.unique * b, nb.modelled * b
+        ops = sum((p.stats()["muls"] + p.stats()["adds"]) * b
+                  * (h >> (l + 1)) * (w >> (l + 1))
+                  for l, p in enumerate(pw.programs))
+        t_bytes = unique / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{name},{b}x{h}x{w},{pw.block[0]}x{pw.block[1]},"
+              f"{pw.smem_bytes},{k_ms:.4f},{p_ms:.4f},{unique},"
+              f"{unique / k_ms / 1e6:.1f},{modelled},"
+              f"{modelled / k_ms / 1e6:.1f},{bound:.4f},{by},"
+              f"{bound / k_ms:.4f},{ops},{pw.term_evaluations((b, h, w))},"
+              f"{levels_ms:.4f}")
+        entries[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                             bound_by=by, library_ms=None,
+                             levels_ms=levels_ms)
+    print("(no one PyTorch call computes a multi-level pyramid: K2/K3's "
+          "library_ms is null; levels_ms is the port's own fuse='levels' "
+          "dwt2/idwt2 on backend cuda)")
+    del pyr, ll, det
+    check("tap_window" in entries, "fused level was not timed")
+    return entries
 
 
 def nvidia_smi():
@@ -374,6 +603,7 @@ def main(argv=None):
     from repro_torch import compiler as C
     from repro_torch.compiler import conv as CV
     from repro_torch.kernels import polyphase as PP
+    from repro_torch.kernels import pyramid_window as PW
     from repro_torch.kernels import tap_window as TW
     device = torch.device("cpu") if cpu else torch.device("cuda", 0)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -382,22 +612,30 @@ def main(argv=None):
           flush=True)
     t_start = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
-    phase_build(TW, cpu)
-    max_err = phase_kernel(torch, C, TW, device, cpu, gen)
-    launches, plans, x = phase_main(torch, R, TW, device, cpu, gen)
+    phase_build(TW, PW, cpu)
+    max_err = {"tap_window": phase_kernel(torch, C, TW, device, cpu, gen)}
+    worst = phase_pyramid_kernel(torch, R, PW, device, cpu, gen)
+    max_err.update(pyramid_forward=worst["pyramid_forward"],
+                   pyramid_inverse=worst["pyramid_inverse"])
+    launched, plans, x = phase_main(torch, R, TW, PW, device, cpu, gen)
     if not cpu:
-        check(launches == 2 * sum(EXPECTED_LAUNCHES.values()),
-              f"main path counted {launches} launches")
+        want = {"tap_window": 2 * sum(
+            v for k, v in EXPECTED_LAUNCHES.items() if k[1] != "pyramid"),
+            "pyramid_forward": 1, "pyramid_inverse": 1}
+        check(launched == want, f"main path launched {launched}, expected "
+                                f"{want}")
     timer = Timer(torch, device)
-    entry = phase_times(torch, R, PP, TW, CV, device, plans, x, timer)
+    entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     card = "cpu rehearsal" if cpu else nvidia_smi()
     print(card)
-    kernels = [dict(name="tap_window", route="cuda",
-                    source="src/repro_torch/csrc/tap_window.cu",
-                    replaces=TPU_KERNEL, launches=launches,
-                    max_abs_err=max_err, **entry)]
-    print(json.dumps({"kernels": kernels}))
+    kernels_line = [dict(name=name, route="cuda", source=SOURCES[name],
+                         replaces=TPU_KERNELS[name],
+                         launches=launched[name], max_abs_err=max_err[name],
+                         **entries[name])
+                    for name in ("tap_window", "pyramid_forward",
+                                 "pyramid_inverse")]
+    print(json.dumps({"kernels": kernels_line}))
     kind = "cpu" if cpu else torch.cuda.get_device_name(0)
     count = 0 if cpu else torch.cuda.device_count()
     print(json.dumps({"ok": True, "device": {

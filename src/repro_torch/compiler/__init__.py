@@ -27,21 +27,28 @@ fp32 tolerances) and is what cuts MACs/pixel.
 The programs, node for node, are those of the reference package's
 compiler: the same passes over the same algebra.  Executors live in
 :mod:`repro_torch.compiler.execute`; op counts come from
-:meth:`TapProgram.stats`.
+:meth:`TapProgram.stats`; the fused-pyramid margin schedules live in
+:mod:`repro_torch.compiler.pyramid`.
 """
 from __future__ import annotations
 
 import functools
 from typing import Sequence, Tuple
 
-from repro_torch.compiler import execute, ir, lower, passes
+from repro_torch.compiler import execute, ir, lower, passes, pyramid
 from repro_torch.compiler.ir import Node, TapProgram, Term
 from repro_torch.compiler.passes import OPT_LEVELS, optimize_program
+from repro_torch.compiler.pyramid import (PyramidSchedule,
+                                          compile_pyramid_programs,
+                                          forward_schedule, inverse_schedule,
+                                          level_reaches)
 
 __all__ = [
     "Node", "TapProgram", "Term", "OPT_LEVELS", "compile_steps",
     "compile_scheme_programs", "optimize_program", "program_stats",
-    "execute", "ir", "lower", "passes",
+    "PyramidSchedule", "compile_pyramid_programs", "forward_schedule",
+    "inverse_schedule", "level_reaches",
+    "execute", "ir", "lower", "passes", "pyramid",
 ]
 
 

@@ -34,8 +34,11 @@ Parameters shared by :func:`dwt2` and :func:`idwt2`:
     * "none"    — paper-faithful: one kernel launch per barrier step
     * "scheme"  — one launch per level (compound halo)
     * "levels"  — as "scheme" (PyTorch runs eagerly)
-    * "pyramid" — not ported on "cuda" (raises); the "torch" backend
-      runs the per-level chain
+    * "pyramid" — on "cuda" the whole transform in one launch of a
+      fused-pyramid kernel (falls back to "levels", stated in
+      ``plan.fallback``, when even the smallest block's window does not
+      fit in shared memory); the "torch" backend runs the per-level
+      chain
 ``boundary``
     Only ``"periodic"`` is implemented.
 """

@@ -19,8 +19,10 @@ Registered backends:
   package's ``"jnp"``).
 * ``"cuda"``  — the hand-written CUDA window kernel
   (:mod:`repro_torch.kernels.tap_window`; the reference's ``"pallas"``):
-  one launch per barrier step under ``fuse="none"``, one per level
-  otherwise.  On CPU tensors it runs the kernel's plain version.
+  one launch per barrier step under ``fuse="none"``, one per level under
+  ``"scheme"``/``"levels"``, and one per transform under ``"pyramid"``
+  (the fused-pyramid kernels, :mod:`repro_torch.kernels.pyramid_window`).
+  On CPU tensors it runs the kernels' plain versions.
 
 PyTorch runs eagerly, so every backend chains levels in Python;
 ``fuse="levels"`` differs from ``"scheme"`` only in name here.
@@ -32,7 +34,7 @@ from typing import Dict, Optional, Tuple
 from repro_torch.engine import executor as X
 
 __all__ = ["Backend", "BackendError", "register_backend", "get_backend",
-           "available_backends"]
+           "available_backends", "capability_matrix"]
 
 #: backends of the reference package this port does not have yet
 UNPORTED_BACKENDS = ("auto", "xla")
@@ -62,6 +64,9 @@ class Backend:
     #: True when launches run the window kernel: plans then pick its block
     #: through the SMEM guard and encode every program for it
     window_kernel: bool = False
+    #: True when fuse="pyramid" is a real single-launch kernel (not the
+    #: per-level chain)
+    pyramid_kernel: bool = False
 
     # -- plan-build hooks --------------------------------------------------
 
@@ -137,6 +142,14 @@ class Backend:
         launches no kernels of its own)."""
         return 0
 
+    def capabilities(self) -> dict:
+        return {"backend": self.name, "fuse_modes": self.fuse_modes,
+                "compute_dtypes": self.compute_dtypes,
+                "io_dtypes": self.io_dtypes,
+                "window_kernel": self.window_kernel,
+                "pyramid_kernel": self.pyramid_kernel,
+                "description": self.description}
+
 
 # ---------------------------------------------------------------------------
 # Registry
@@ -174,6 +187,11 @@ def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def capability_matrix() -> Tuple[dict, ...]:
+    """One capability row per registered backend."""
+    return tuple(_REGISTRY[n].capabilities() for n in available_backends())
+
+
 # ---------------------------------------------------------------------------
 # Built-in backends
 # ---------------------------------------------------------------------------
@@ -199,24 +217,16 @@ class TorchBackend(Backend):
 
 
 class CudaBackend(Backend):
-    """The hand-written CUDA window kernel: batch rides a grid dimension,
-    halo windows are gathered into shared memory with mod indexing."""
+    """The hand-written CUDA kernels: batch rides a grid dimension, halo
+    windows are gathered into shared memory with mod indexing;
+    ``fuse="pyramid"`` is the single-launch fused-pyramid pair."""
 
     name = "cuda"
-    description = "hand-written CUDA window kernel (plain version on CPU)"
-    fuse_modes = ("none", "scheme", "levels")
+    description = ("hand-written CUDA window and fused-pyramid kernels "
+                   "(plain versions on CPU)")
     io_dtypes = ("float32", "float16", "bfloat16")
     window_kernel = True
-
-    def validate(self, key) -> None:
-        if key.fuse == "pyramid":
-            raise BackendError(
-                f"backend {self.name!r} does not support "
-                f"PlanKey.fuse='pyramid' yet: the fused-pyramid kernels "
-                f"(pyramid_forward_pallas / pyramid_inverse_pallas in the "
-                f"reference) are not ported; fuse modes supported by "
-                f"{self.name!r}: {self.fuse_modes}")
-        super().validate(key)
+    pyramid_kernel = True
 
     def program_opt(self, key) -> str:
         # "off" runs the lowered raw walk, bit-identical to walking the
@@ -229,9 +239,21 @@ class CudaBackend(Backend):
     def level_inverse(self, planes, spec, key):
         return X.cuda_level_inverse(planes, spec, key)
 
+    def make_forward(self, plan):
+        if plan.pyramid is not None:
+            return X.make_pyramid_forward(plan)
+        return super().make_forward(plan)  # or the SMEM fallback: "levels"
+
+    def make_inverse(self, plan):
+        if plan.pyramid is not None:
+            return X.make_pyramid_inverse(plan)
+        return super().make_inverse(plan)
+
     def launches(self, plan) -> int:
         if plan.key.fuse == "none":
             return plan.num_steps
+        if plan.key.fuse == "pyramid" and plan.pyramid is not None:
+            return 1
         return len(plan.level_specs)
 
 

@@ -2,7 +2,8 @@
 registered backend.
 
 * ``executor.py``  (here)  — level arithmetic: image -> 4 subband planes
-  (and back) for the torch roll path and the CUDA window kernel;
+  (and back) for the torch roll path and the CUDA window kernel, and the
+  single-launch executors of a fused-pyramid plan;
 * ``backends.py``          — dispatch policy: which fuse modes a backend
   supports, how levels chain, how launches are counted.
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.compiler import execute as CX
 from repro_torch.core import schemes as S
 from repro_torch.kernels import polyphase as PP
+from repro_torch.kernels import pyramid_window as PW
 
 
 def apply_steps_torch(steps: Sequence[PP.StepSpec], planes: S.Planes
@@ -87,3 +89,49 @@ def cuda_level_inverse(planes, spec, key):
     planes = PP.apply_steps_cuda(spec.inv_steps, planes,
                                  windows=spec.inv_windows)
     return S.from_planes(planes)
+
+
+# ---------------------------------------------------------------------------
+# cuda backend: the fused-pyramid kernels (one launch per transform)
+# ---------------------------------------------------------------------------
+
+def make_pyramid_forward(plan):
+    """Forward executor of a fused-pyramid plan: one launch for the whole
+    multi-level transform (details returned coarsest-first)."""
+    from repro_torch.engine import plan as PLAN
+    kernel = plan.pyramid.fwd_kernel
+
+    def run(x):
+        PLAN.count("pyramid_kernel_launches")
+        batch = x.shape[:-2]
+        x3 = x.reshape((-1,) + x.shape[-2:]).contiguous()
+        ll, details = PW.pyramid_forward(kernel, x3)
+
+        def unflat(p):
+            return p.reshape(batch + p.shape[-2:])
+
+        return unflat(ll), tuple(tuple(unflat(d) for d in det)
+                                 for det in details[::-1])
+
+    return run
+
+
+def make_pyramid_inverse(plan):
+    """Inverse executor of a fused-pyramid plan (one launch); takes the
+    details coarsest-first, as a :class:`Pyramid` holds them."""
+    from repro_torch.engine import plan as PLAN
+    kernel = plan.pyramid.inv_kernel
+
+    def run(ll, details):
+        PLAN.count("pyramid_kernel_launches")
+        batch = ll.shape[:-2]
+
+        def flat(p):
+            return p.reshape((-1,) + p.shape[-2:]).contiguous()
+
+        x = PW.pyramid_inverse(kernel, flat(ll),
+                               tuple(tuple(flat(d) for d in det)
+                                     for det in details[::-1]))
+        return x.reshape(batch + x.shape[-2:])
+
+    return run

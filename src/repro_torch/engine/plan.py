@@ -18,9 +18,18 @@ Execution semantics (see :mod:`repro_torch.engine.backends` /
 * ``fuse="none"``   — paper-faithful: one kernel launch per barrier step;
 * ``fuse="scheme"`` / ``"levels"`` — one launch per level (compound
   halo); PyTorch runs eagerly, so the two differ only in name;
-* ``fuse="pyramid"`` — the single-launch pyramid kernels are not ported:
-  the ``cuda`` backend rejects it at plan build, the ``torch`` backend
-  runs the per-level chain.
+* ``fuse="pyramid"`` — on the ``cuda`` backend the whole multi-level
+  transform is **one launch** of a fused-pyramid kernel (forward K2,
+  inverse K3, :mod:`repro_torch.kernels.pyramid_window`): polyphase
+  split/merge happens in shared memory on compound-halo windows of the
+  interleaved image and the LL plane never touches device memory between
+  levels.  A shared-memory guard falls back to ``"levels"`` execution
+  when even the smallest ``2^levels``-aligned block does not fit
+  (``$REPRO_TORCH_PYRAMID_SMEM_LIMIT`` bytes, default
+  :data:`~repro_torch.kernels.tap_window.SMEM_LIMIT`), counted in
+  :data:`COUNTERS` and stated in ``plan.fallback``.  On the ``torch``
+  backend ``"pyramid"`` runs the per-level chain (bit-identical to
+  ``fuse="none"``).
 
 Fields of the reference's PlanKey that this port does not execute yet
 (``tiles``, ``packet``, ``ndim=3``) stay in the key and raise
@@ -31,6 +40,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -42,11 +53,35 @@ from repro_torch.core import optimize as O
 from repro_torch.core import schemes as S
 from repro_torch.engine import backends as B
 from repro_torch.kernels import polyphase as PP
+from repro_torch.kernels import pyramid_window as PW
 from repro_torch.kernels import tap_window as TW
 
 FUSE_MODES = ("none", "scheme", "levels", "pyramid")
 BOUNDARIES = ("periodic",)
 COMPUTE_DTYPES = tuple(TW.COMPUTE_DTYPES)
+
+#: shared-memory budget of one fused-pyramid launch, in bytes (the
+#: reference's $REPRO_PYRAMID_VMEM_LIMIT)
+PYRAMID_SMEM_LIMIT_ENV = "REPRO_TORCH_PYRAMID_SMEM_LIMIT"
+
+#: engine-wide fused-pyramid counters: executions of a pyramid plan's
+#: single-launch executor (on any device; the kernels' own launch counts
+#: are ``pyramid_window.FORWARD`` / ``.INVERSE``) and fuse="pyramid"
+#: plans demoted to fuse="levels" by the shared-memory guard
+COUNTERS = {"pyramid_kernel_launches": 0, "smem_fallbacks": 0}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one to ``COUNTERS[name]`` (plans build and run on any thread)."""
+    with _COUNTERS_LOCK:
+        COUNTERS[name] += 1
+
+
+def pyramid_smem_limit() -> int:
+    """Configurable shared-memory budget for the fused-pyramid kernels."""
+    v = os.environ.get(PYRAMID_SMEM_LIMIT_ENV)
+    return int(v) if v else TW.SMEM_LIMIT
 
 
 def resolve_device(device) -> torch.device:
@@ -149,6 +184,26 @@ class LevelSpec:
 
 
 @dataclasses.dataclass
+class PyramidSpec:
+    """Static execution parameters of one fused-pyramid plan."""
+
+    target: Tuple[int, int]           # plane-space block target
+    block: Tuple[int, int]            # image-space block core (bh, bw)
+    covered_shape: Tuple[int, int]    # image dims covered by whole blocks
+    fwd_sched: C.PyramidSchedule
+    inv_sched: C.PyramidSchedule
+    # the two kernels, encoded at ``block`` with one whole-chain program
+    # per level (see pyramid_programs)
+    fwd_kernel: PW.PyramidWindow
+    inv_kernel: PW.PyramidWindow
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of the larger of the two launches."""
+        return max(self.fwd_kernel.smem_bytes, self.inv_kernel.smem_bytes)
+
+
+@dataclasses.dataclass
 class DwtPlan:
     """A fully-resolved, reusable multi-level DWT executor.
 
@@ -162,6 +217,10 @@ class DwtPlan:
     level_specs: Tuple[LevelSpec, ...]
     _forward: Optional[object] = None   # set by the backend
     _inverse: Optional[object] = None
+    # PyramidSpec for fuse="pyramid" cuda plans; None after the
+    # shared-memory fallback (the plan then executes as fuse="levels")
+    pyramid: Optional[PyramidSpec] = None
+    fallback: Optional[str] = None      # why the pyramid kernel was skipped
 
     @property
     def num_steps(self) -> int:
@@ -235,6 +294,78 @@ def _resolve_level(index: int, h: int, w: int, key: PlanKey,
                      fwd_windows=fwd_windows, inv_windows=inv_windows)
 
 
+def pyramid_programs(key: PlanKey):
+    """The fused-pyramid schedules and per-level programs of a plan key:
+    ``(fwd schedule, inv schedule, fwd programs, inv programs)``.  The
+    schedules are the reference's, built from its programs (none under
+    ``tap_opt="off"``, where it walks raw matrices and the reaches are
+    the summed step halos); the programs are what the kernels run —
+    under ``"off"`` the lowered raw walk, bit-identical to walking the
+    matrices, whose halo never exceeds those summed step halos."""
+    L = key.levels
+    fwd_steps = scheme_steps(key.wavelet, key.scheme, key.optimize, False)
+    inv_steps = scheme_steps(key.wavelet, key.scheme, False, True)
+    fwd_programs = C.compile_pyramid_programs(
+        key.wavelet, key.scheme, key.optimize, False, key.tap_opt, L)
+    inv_programs = C.compile_pyramid_programs(
+        key.wavelet, key.scheme, False, True, key.tap_opt, L)
+    fwd_sched = C.forward_schedule(
+        C.level_reaches(fwd_steps, fwd_programs, L), L)
+    inv_sched = C.inverse_schedule(
+        C.level_reaches(inv_steps, inv_programs, L), L)
+    fwd_kprogs = fwd_programs or (C.compile_scheme_programs(
+        key.wavelet, key.scheme, key.optimize, False, "off", "scheme")
+        * L)
+    inv_kprogs = inv_programs or (C.compile_scheme_programs(
+        key.wavelet, key.scheme, False, True, "off", "scheme") * L)
+    return fwd_sched, inv_sched, fwd_kprogs, inv_kprogs
+
+
+def _resolve_pyramid(key: PlanKey, h: int, w: int,
+                     block_target: Tuple[int, int] = TW.BLOCK_TARGET
+                     ) -> Tuple[Optional[PyramidSpec], Optional[str]]:
+    """Resolve the fused-pyramid kernels of a plan.
+
+    The shared-memory guard halves both edges of the plane-space block
+    target (down to the ``2^levels`` image-space floor) until both
+    launches fit :func:`pyramid_smem_limit` (and every level window the
+    kernels' row bounds, which the default limit already implies); only
+    when even the smallest phase-alignable block is over budget does the
+    plan fall back to ``fuse="levels"`` execution (counted in
+    :data:`COUNTERS`)."""
+    L = key.levels
+    fwd_sched, inv_sched, fwd_kprogs, inv_kprogs = pyramid_programs(key)
+    align = 1 << L
+    limit = pyramid_smem_limit()
+    target = (int(block_target[0]), int(block_target[1]))
+    floor = max(1, align // 2)      # image-space block floor = 2^levels
+    while True:
+        bh, hp2 = PP._pick_block_aligned(h, 2 * target[0], align)
+        bw, wp2 = PP._pick_block_aligned(w, 2 * target[1], align)
+        need = max(PW.smem_bytes(fwd_kprogs, fwd_sched, (bh, bw)),
+                   PW.smem_bytes(inv_kprogs, inv_sched, (bh, bw)))
+        if need <= limit and PW.windows_fit(fwd_sched, (bh, bw)) \
+                and PW.windows_fit(inv_sched, (bh, bw)):
+            cdt = key.compute_dtype
+            return PyramidSpec(
+                target=target, block=(bh, bw), covered_shape=(hp2, wp2),
+                fwd_sched=fwd_sched, inv_sched=inv_sched,
+                fwd_kernel=PW.encode_pyramid(fwd_kprogs, fwd_sched,
+                                             (bh, bw), cdt),
+                inv_kernel=PW.encode_pyramid(inv_kprogs, inv_sched,
+                                             (bh, bw), cdt)), None
+        smaller = (max(target[0] // 2, floor), max(target[1] // 2, floor))
+        if smaller == target:
+            break
+        target = smaller
+    count("smem_fallbacks")
+    m = fwd_sched.margins[0]
+    why = (f"needs {need} B of shared memory > limit {limit} B"
+           if need > limit else "exceeds the kernels' window bounds")
+    return None, (f"pyramid window {(bh + 2 * m, bw + 2 * m)} {why} even "
+                  f"at the minimum block; executing as fuse='levels'")
+
+
 def build_plan(key: PlanKey) -> DwtPlan:
     """Resolve a :class:`PlanKey` into an executable :class:`DwtPlan`.
 
@@ -288,6 +419,8 @@ def build_plan(key: PlanKey) -> DwtPlan:
                                  backend)
                   for lvl in range(key.levels))
     plan = DwtPlan(key=key, level_specs=specs)
+    if key.fuse == "pyramid" and backend.pyramid_kernel:
+        plan.pyramid, plan.fallback = _resolve_pyramid(key, h, w)
     plan._forward = backend.make_forward(plan)
     plan._inverse = backend.make_inverse(plan)
     return plan

@@ -8,15 +8,19 @@ model drives the hand-written CUDA window kernel
 * :class:`StepSpec` / :func:`steps_of` — a scheme as barrier-delimited
   ``(pre, main, post)`` matrix triples;
 * :func:`_pick_block` — block edge selection per axis;
+  :func:`_pick_block_aligned` — the same with ``2^levels``-aligned edges,
+  for the fused-pyramid kernels;
 * :func:`scheme_hbm_bytes` — the device-memory traffic model of one
-  transform level on this kernel;
+  transform level on this kernel; :func:`pyramid_hbm_bytes` — that of
+  one fused-pyramid launch;
+* :func:`pyramid_out_levels` — the fused-pyramid kernels' subband order;
 * :func:`apply_steps_cuda` — one launch per step (``fuse="none"``, the
   paper's barrier count) or one per level (``fuse="scheme"``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 from repro_torch.core import optimize as O
 from repro_torch.core import poly as P
@@ -59,6 +63,71 @@ def _pick_block(n: int, target: int) -> Tuple[int, int]:
     if 2 * d >= b:
         return d, n
     return b, -(-n // b) * b
+
+
+def _pick_block_aligned(n: int, target: int, align: int) -> Tuple[int, int]:
+    """Like :func:`_pick_block`, but the block edge must be a multiple of
+    ``align`` (= ``2^levels`` for the fused-pyramid kernels, so every
+    window start is phase-aligned at every pyramid level).  ``n`` itself
+    must already be a multiple of ``align`` (image geometry is validated
+    upstream)."""
+    t = max(align, (min(n, target) // align) * align)
+    d = t
+    while d >= align and n % d:
+        d -= align
+    if d >= align and 2 * d >= t:
+        return d, n
+    return t, -(-n // t) * t
+
+
+def pyramid_out_levels(levels: int) -> List[int]:
+    """Fused-pyramid I/O layout: the level of each subband slot, in
+    order — coarsest LL first, then (HL, LH, HH) per level finest-first.
+    Shared by the forward/inverse kernels, their plain versions, the
+    shared-memory guard and the bytes model."""
+    return [levels - 1] + [l for l in range(levels) for _ in range(3)]
+
+
+class PyramidBytes(NamedTuple):
+    """Device-memory bytes of one fused-pyramid launch."""
+
+    modelled: int    # what the kernel moves: window overlap counted
+    unique: int      # image read (or written) once, every subband once
+
+
+def pyramid_hbm_bytes(sched, shape: Tuple[int, int], itemsize: int,
+                      block: Tuple[int, int]) -> PyramidBytes:
+    """Modelled device-memory bytes of one fused-pyramid launch on a
+    (H, W) image, for the direction of ``sched`` (a forward or inverse
+    :class:`~repro_torch.compiler.pyramid.PyramidSchedule`), at the
+    image-space ``block``.
+
+    The port's kernels pad nothing: every window is gathered with mod
+    indexing from the unpadded image or subbands, the blocks cover each
+    axis with a ragged last block, and every store is masked to the true
+    dims.  Forward: each block reads one ``(bh+2M) x (bw+2M)`` window of
+    the image (``M = sched.margins[0]``) and every subband is written
+    once.  Inverse: each block reads the coarsest-LL window (margin
+    ``margins[L]``) and each level's three detail windows (margin
+    ``margins[l+1]``), and the image is written once.
+    """
+    h, w = shape
+    L = sched.levels
+    bh, bw = block
+    blocks = -(-h // bh) * -(-w // bw)
+    image = h * w
+    if sched.kind == "forward":
+        M = sched.margins[0]
+        reads = blocks * (bh + 2 * M) * (bw + 2 * M)
+    else:
+        reads = 0
+        for k, l in enumerate(pyramid_out_levels(L)):
+            g = sched.margins[L] if k == 0 else sched.margins[l + 1]
+            reads += blocks * ((bh >> (l + 1)) + 2 * g) \
+                * ((bw >> (l + 1)) + 2 * g)
+    # the subbands partition the image: h*w samples in all
+    return PyramidBytes(modelled=(reads + image) * itemsize,
+                        unique=2 * image * itemsize)
 
 
 def scheme_hbm_bytes(programs: Sequence, shape: Tuple[int, int],

@@ -53,7 +53,10 @@ from repro_torch.compiler.execute import required_margins, run_window
 from repro_torch.core.schemes import coef
 from repro_torch.kernels.polyphase import _pick_block
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tap_window.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCE = CSRC / "tap_window.cu"
+#: device functions shared with the fused-pyramid kernels
+HEADER = CSRC / "window_common.cuh"
 #: build directory: ``$REPRO_TORCH_BUILD_DIR``, else ``build/repro_torch``
 #: at the root of the checkout
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
@@ -68,9 +71,17 @@ SMEM_LIMIT = 232448
 BLOCK_TARGET = (32, 64)
 #: the SMEM guard never shrinks a block edge below this
 MIN_BLOCK = 8
-#: the kernel maps flat region indices to rows in float arithmetic, exact
-#: for block edges up to this
+#: the encoder refuses block edges above this (no guard picks one)
 MAX_BLOCK_EDGE = 256
+#: the kernels map a flat region index i to its row with one float
+#: multiply (``row_of`` in csrc/window_common.cuh), exact for every
+#: i < 2^22 at any width.  Both encoders refuse windows past these
+#: bounds: one fp32 slot of MAX_WINDOW_ELEMS positions already fills the
+#: shared memory, and the CPU tests check the formula against integer
+#: division for every width up to MAX_WINDOW_WIDTH at every index below
+#: MAX_WINDOW_ELEMS.
+MAX_WINDOW_ELEMS = SMEM_LIMIT // 4
+MAX_WINDOW_WIDTH = 1024
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 IO_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -97,7 +108,6 @@ class _Layout:
     """Block-independent facts of one program: which nodes run, the
     region margin of each, its shared-memory slot, its output mask."""
 
-    halo: int
     order: Tuple[int, ...]                  # node ids the kernel walks
     margins: Tuple[Optional[Tuple[int, int]], ...]
     slots: Tuple[int, ...]                  # per node id, -1 = none
@@ -107,12 +117,15 @@ class _Layout:
 
 
 @functools.lru_cache(maxsize=1024)
-def layout(prog: ir.TapProgram) -> _Layout:
+def layout(prog: ir.TapProgram, out_margin: Optional[int] = None
+           ) -> _Layout:
     """Liveness pass: the nodes the kernel runs (outputs' ancestors, in
-    program order), each node's region margin at the program halo, and a
-    shared-memory slot for every node a later node reads — reused once
-    its last reader has run.  Outputs nothing reads take no slot."""
-    r = prog.halo
+    program order), each node's region margin with the outputs at
+    ``out_margin`` (default: the program halo, the window kernel's
+    case), and a shared-memory slot for every node a later node reads —
+    reused once its last reader has run.  Outputs nothing reads take no
+    slot."""
+    r = prog.halo if out_margin is None else int(out_margin)
     req = required_margins(prog, r)
     n = len(prog.nodes)
     masks = [0] * n
@@ -146,21 +159,70 @@ def layout(prog: ir.TapProgram) -> _Layout:
     n_terms = sum(len(prog.nodes[i].terms) for i in order)
     margins = tuple((0, 0) if prog.nodes[i].kind == "input" else req[i]
                     for i in range(n))
-    return _Layout(halo=r, order=tuple(order), margins=margins,
+    return _Layout(order=tuple(order), margins=margins,
                    slots=tuple(slots), masks=tuple(masks), n_slots=n_slots,
                    n_terms=n_terms)
 
 
-def _table_ints(lay: _Layout) -> int:
+def table_ints(lay: _Layout) -> int:
     return _HEADER + _NODE_INTS * len(lay.order) + _TERM_INTS * lay.n_terms
+
+
+def walk_terms(prog: ir.TapProgram, lay: _Layout, wh: int, ww: int) -> int:
+    """Term evaluations of one walk of ``prog`` over a ``wh x ww`` window:
+    each lincomb node's region times its term count (the kernels' work
+    per block)."""
+    n = 0
+    for i in lay.order:
+        nd = prog.nodes[i]
+        if nd.kind != "input":
+            qm, qn = lay.margins[i]
+            n += (wh - 2 * qn) * (ww - 2 * qm) * len(nd.terms)
+    return n
+
+
+def check_window(wh: int, ww: int) -> None:
+    """Refuse a window the kernels' float row mapping is not proven
+    exact for (see :data:`MAX_WINDOW_ELEMS`)."""
+    if ww > MAX_WINDOW_WIDTH or wh * ww > MAX_WINDOW_ELEMS:
+        raise ValueError(
+            f"window {wh}x{ww} exceeds the kernels' bounds (width <= "
+            f"{MAX_WINDOW_WIDTH}, at most {MAX_WINDOW_ELEMS} positions)")
+
+
+def table_rows(prog: ir.TapProgram, lay: _Layout, wh: int, ww: int,
+               halo: int, compute_dtype: str) -> np.ndarray:
+    """One program's table (see csrc/window_common.cuh) for a ``wh x ww``
+    window of halo ``halo``: header, node rows, term rows."""
+    check_window(wh, ww)
+    cdt = COMPUTE_DTYPES[compute_dtype]
+    plane = wh * ww
+    node_rows: List[List[int]] = []
+    term_rows: List[List[int]] = []
+    for i in lay.order:
+        nd = prog.nodes[i]
+        qm, qn = lay.margins[i]
+        kind = _INPUT if nd.kind == "input" else _LINCOMB
+        node_rows.append([kind, nd.j if kind == _INPUT else 0,
+                          lay.slots[i], qm, qn, len(term_rows),
+                          len(nd.terms), lay.masks[i]])
+        for t in nd.terms:
+            src = lay.slots[t.src]
+            assert src >= 0, f"node {i} reads node {t.src}, which has no slot"
+            op = _COPY if t.c == 1.0 else (_NEG if t.c == -1.0 else _MUL)
+            bits = int(np.array(coef(t.c, cdt), np.float32).view(np.int32))
+            term_rows.append([src * plane - t.kn * ww - t.km, op, bits, 0])
+    return np.array([len(node_rows), len(term_rows), lay.n_slots, halo]
+                    + [v for row in node_rows for v in row]
+                    + [v for row in term_rows for v in row], np.int32)
 
 
 def smem_bytes(prog: ir.TapProgram, block: Tuple[int, int]) -> int:
     """Dynamic shared memory of one launch: the program table plus one
     fp32 window per slot."""
     lay = layout(prog)
-    r = lay.halo
-    table = (_table_ints(lay) + 3) // 4 * 4
+    r = prog.halo
+    table = (table_ints(lay) + 3) // 4 * 4
     return 4 * (table + lay.n_slots * (block[0] + 2 * r)
                 * (block[1] + 2 * r))
 
@@ -219,6 +281,13 @@ class WindowProgram:
     def smem_bytes(self) -> int:
         return smem_bytes(self.program, self.block)
 
+    def term_evaluations(self, shape: Tuple[int, int, int]) -> int:
+        """Term evaluations of one launch over ``(B, hp, wp)`` planes."""
+        nb, hp, wp = shape
+        blocks = nb * -(-hp // self.block[0]) * -(-wp // self.block[1])
+        return blocks * walk_terms(self.program, layout(self.program),
+                                   *self.window)
+
     def device_table(self, device: torch.device) -> torch.Tensor:
         with self._lock:
             t = self._tables.get(device)
@@ -231,40 +300,21 @@ class WindowProgram:
 def encode(prog: ir.TapProgram, block: Tuple[int, int],
            compute_dtype: str = "float32") -> WindowProgram:
     """Encode ``prog`` for launches at ``block`` (see the table layout in
-    ``csrc/tap_window.cu``)."""
+    ``csrc/window_common.cuh``)."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}; "
                          f"available: {tuple(COMPUTE_DTYPES)}")
     if not all(1 <= int(e) <= MAX_BLOCK_EDGE for e in block):
         raise ValueError(f"block {tuple(block)} outside 1..{MAX_BLOCK_EDGE} "
                          f"per edge")
-    cdt = COMPUTE_DTYPES[compute_dtype]
     lay = layout(prog)
-    r = lay.halo
-    ww = block[1] + 2 * r
-    plane = (block[0] + 2 * r) * ww
-    node_rows: List[List[int]] = []
-    term_rows: List[List[int]] = []
-    for i in lay.order:
-        nd = prog.nodes[i]
-        qm, qn = lay.margins[i]
-        kind = _INPUT if nd.kind == "input" else _LINCOMB
-        node_rows.append([kind, nd.j if kind == _INPUT else 0,
-                          lay.slots[i], qm, qn, len(term_rows),
-                          len(nd.terms), lay.masks[i]])
-        for t in nd.terms:
-            src = lay.slots[t.src]
-            assert src >= 0, f"node {i} reads node {t.src}, which has no slot"
-            op = _COPY if t.c == 1.0 else (_NEG if t.c == -1.0 else _MUL)
-            bits = int(np.array(coef(t.c, cdt), np.float32).view(np.int32))
-            term_rows.append([src * plane - t.kn * ww - t.km, op, bits, 0])
-    table = np.array([len(node_rows), len(term_rows), lay.n_slots, r]
-                     + [v for row in node_rows for v in row]
-                     + [v for row in term_rows for v in row], np.int32)
+    r = prog.halo
+    table = table_rows(prog, lay, block[0] + 2 * r, block[1] + 2 * r, r,
+                       compute_dtype)
     table.setflags(write=False)
     return WindowProgram(program=prog, block=(int(block[0]), int(block[1])),
                          compute_dtype=compute_dtype, halo=r,
-                         n_nodes=len(node_rows), n_slots=lay.n_slots,
+                         n_nodes=len(lay.order), n_slots=lay.n_slots,
                          table=table)
 
 
@@ -279,7 +329,7 @@ def _build_dir() -> Path:
     return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 
-def _nvcc() -> str:
+def _nvcc(source: Path) -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
@@ -288,20 +338,21 @@ def _nvcc() -> str:
     if found is None:
         raise RuntimeError(
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
-            "and PATH); the window kernel is built from "
-            f"{SOURCE} at its first launch on a CUDA tensor")
+            f"and PATH); the kernels of {source.name} are built from "
+            f"{source} at their first launch on a CUDA tensor")
     return found
 
 
-class TapWindowKernel:
-    """The built kernel library and its launch counter.
+class KernelLibrary:
+    """One CUDA source, built with nvcc into a shared library with a
+    plain C interface at the first launch on a CUDA tensor (keyed by the
+    hash of the source, its headers and the flags) and bound with ctypes
+    by ``bind``.  The source exports ``<stem>_error_string``."""
 
-    ``launches`` counts kernel launches and nothing else: the plain
-    version (CPU tensors) never touches it.
-    """
-
-    def __init__(self):
-        self.launches = 0
+    def __init__(self, source: Path, bind, headers: Sequence[Path] = (HEADER,)):
+        self.source = Path(source)
+        self.headers = tuple(Path(h) for h in headers)
+        self._bind = bind
         self.build_seconds: Optional[float] = None
         self.ptxas_log = ""
         self.path: Optional[Path] = None
@@ -315,22 +366,25 @@ class TapWindowKernel:
             return self._lib
 
     def _build(self) -> Path:
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+        stem = self.source.stem
+        data = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in self.headers)
+        digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:16]
         out_dir = _build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
-        lib = out_dir / f"tap_window-{digest}.so"
-        log = out_dir / f"tap_window-{digest}.ptxas.txt"
+        lib = out_dir / f"{stem}-{digest}.so"
+        log = out_dir / f"{stem}-{digest}.ptxas.txt"
         if not lib.exists():
-            tmp = out_dir / f".tap_window-{digest}.{os.getpid()}.so"
+            tmp = out_dir / f".{stem}-{digest}.{os.getpid()}.so"
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                [_nvcc(self.source), *NVCC_FLAGS, "-o", str(tmp),
+                 str(self.source)],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed building {SOURCE} (exit "
+                    f"nvcc failed building {self.source} (exit "
                     f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
             self.build_seconds = time.perf_counter() - t0
             log.write_text(proc.stdout + proc.stderr)
@@ -339,19 +393,47 @@ class TapWindowKernel:
         self.path = lib
         return lib
 
-    @staticmethod
-    def _load(path: Path):
+    def _load(self, path: Path):
         lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tap_window_launch.argtypes = (
-            [p, i, i] + [p] * 8 + [i] * 10 + [p])
-        lib.tap_window_launch.restype = i
-        lib.tap_window_error_string.argtypes = [i]
-        lib.tap_window_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{self.source.stem}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._bind(lib)
         return lib
 
+    def check(self, err: int, what: str) -> None:
+        """Raise if a launch function returned a CUDA error."""
+        if err != 0:
+            msg = getattr(self.library(),
+                          f"{self.source.stem}_error_string")(err).decode()
+            raise RuntimeError(f"{what} launch failed: CUDA error {err} "
+                               f"({msg})")
 
-KERNEL = TapWindowKernel()
+
+class Kernel:
+    """One kernel of a :class:`KernelLibrary` and its launch counter.
+
+    ``launches`` counts kernel launches and nothing else: the plain
+    version (CPU tensors) never touches it.
+    """
+
+    def __init__(self, name: str, library: KernelLibrary):
+        self.name = name
+        self.lib = library
+        self.launches = 0
+
+    def library(self):
+        return self.lib.library()
+
+
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tap_window_launch.argtypes = [p, i] + [p] * 8 + [i] * 10 + [p]
+    lib.tap_window_launch.restype = i
+
+
+LIBRARY = KernelLibrary(SOURCE, _bind)
+KERNEL = Kernel("tap_window", LIBRARY)
 
 
 # ---------------------------------------------------------------------------
@@ -376,21 +458,29 @@ def _check(win: WindowProgram, planes: Sequence[torch.Tensor]) -> None:
                 f"{p.device} vs {tuple(p0.shape)} {p0.dtype} {p0.device}")
 
 
+def window_ref(prog: ir.TapProgram, planes: Sequence[torch.Tensor],
+               compute_dtype: str) -> Tuple[torch.Tensor, ...]:
+    """:func:`run_window` of ``prog`` over windows of halo ``prog.halo``
+    gathered from ``(..., hp, wp)`` planes with mod indexing, computed in
+    ``compute_dtype`` and cast back to the planes' dtype."""
+    r = prog.halo
+    hp, wp = planes[0].shape[-2:]
+    dev = planes[0].device
+    ri = torch.arange(-r, hp + r, device=dev) % hp
+    ci = torch.arange(-r, wp + r, device=dev) % wp
+    cdt = COMPUTE_DTYPES[compute_dtype]
+    xs = [p.index_select(-2, ri).index_select(-1, ci).to(cdt)
+          for p in planes]
+    ys = run_window(prog, xs, r)
+    return tuple(y.to(planes[0].dtype) for y in ys)
+
+
 def tap_window_ref(win: WindowProgram, planes: Sequence[torch.Tensor]
                    ) -> Tuple[torch.Tensor, ...]:
     """Plain version of the kernel: :func:`run_window` over windows
     gathered with the kernel's mod indexing (one window per plane)."""
     _check(win, planes)
-    r = win.halo
-    hp, wp = planes[0].shape[-2:]
-    dev = planes[0].device
-    ri = torch.arange(-r, hp + r, device=dev) % hp
-    ci = torch.arange(-r, wp + r, device=dev) % wp
-    cdt = COMPUTE_DTYPES[win.compute_dtype]
-    xs = [p.index_select(-2, ri).index_select(-1, ci).to(cdt)
-          for p in planes]
-    ys = run_window(win.program, xs, r)
-    return tuple(y.to(planes[0].dtype) for y in ys)
+    return window_ref(win.program, planes, win.compute_dtype)
 
 
 def tap_window(win: WindowProgram, planes: Sequence[torch.Tensor]
@@ -422,14 +512,11 @@ def tap_window(win: WindowProgram, planes: Sequence[torch.Tensor]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tap_window_launch(
-            table.data_ptr(), int(table.numel()), win.n_nodes,
+            table.data_ptr(), int(table.numel()),
             *[p.data_ptr() for p in planes], *[o.data_ptr() for o in outs],
             nb, hp, wp, bh, bw, win.halo, win.n_slots,
             IO_CODES[planes[0].dtype],
             int(win.compute_dtype == "bfloat16"), dev.index, stream)
-    if err != 0:
-        msg = lib.tap_window_error_string(err).decode()
-        raise RuntimeError(f"tap_window launch failed: CUDA error {err} "
-                           f"({msg})")
+    LIBRARY.check(err, "tap_window")
     KERNEL.launches += 1
     return tuple(outs)

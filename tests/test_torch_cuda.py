@@ -1,4 +1,5 @@
-"""The CUDA window kernel on the card, against its plain version.
+"""The CUDA kernels on the card (the window kernel K1 and the
+fused-pyramid kernels K2/K3), against their plain versions.
 
 Marked ``cuda``: where no CUDA device is present every test skips with
 that reason.  On a machine with the card (no JAX needed):
@@ -107,3 +108,83 @@ def test_wrapper_rejects_non_contiguous_planes(cuda_device):
     planes = [p.transpose(1, 2) for p in _planes((1, 16, 8), cuda_device)]
     with pytest.raises(ValueError, match="contiguous"):
         TW.tap_window(win, planes)
+
+
+# ---------------------------------------------------------------------------
+# the fused-pyramid kernels K2 / K3
+# ---------------------------------------------------------------------------
+
+def _pyramid_kernels(wavelet, scheme, levels, shape, compute="float32"):
+    """K2/K3 encoded at the block the plan's guard picks for ``shape``
+    (None where the configuration falls back to fuse="levels")."""
+    spec = R.get_plan(wavelet=wavelet, scheme=scheme, levels=levels,
+                      shape=shape, backend="cuda", fuse="pyramid",
+                      compute_dtype=compute, device="cpu",
+                      cache=R.PlanCache()).pyramid
+    return None if spec is None else (spec.fwd_kernel, spec.inv_kernel)
+
+
+@pytest.mark.parametrize("levels", (1, 2, 3))
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_pyramid_kernels_equal_plain_versions(cuda_device, scheme, levels):
+    from repro_torch.kernels import pyramid_window as PW
+    g = torch.Generator().manual_seed(levels)
+    for wavelet, shape in itertools.product(WAVELETS, [(3, 296, 424),
+                                                       (2, 256, 4072)]):
+        kernels = _pyramid_kernels(wavelet, scheme, levels, shape)
+        if kernels is None:
+            continue          # falls back to fuse="levels": no kernel
+        fwd, inv = kernels
+        x = torch.randn(shape, generator=g).to(cuda_device)
+        ll, det = PW.pyramid_forward(fwd, x)
+        rll, rdet = PW.pyramid_forward_ref(fwd, x)
+        for a, b in zip([ll] + [d for t in det for d in t],
+                        [rll] + [d for t in rdet for d in t]):
+            assert torch.equal(a, b), (wavelet, shape)
+        rec = PW.pyramid_inverse(inv, ll, det)
+        assert torch.equal(rec, PW.pyramid_inverse_ref(inv, ll, det))
+        torch.testing.assert_close(rec, x, **ROUNDTRIP_TOL)
+
+
+@pytest.mark.parametrize("io,cdt", [(torch.float16, "float32"),
+                                    (torch.bfloat16, "float32"),
+                                    (torch.float32, "bfloat16"),
+                                    (torch.bfloat16, "bfloat16")])
+def test_pyramid_kernels_narrow_types_equal_plain_versions(cuda_device, io,
+                                                           cdt):
+    from repro_torch.kernels import pyramid_window as PW
+    fwd, inv = _pyramid_kernels("cdf97", "ns-polyconv", 3, (2, 256, 4072),
+                                compute=cdt)
+    x = torch.randn((2, 256, 4072), generator=torch.Generator()
+                    .manual_seed(3)).to(cuda_device, io)
+    ll, det = PW.pyramid_forward(fwd, x)
+    rll, rdet = PW.pyramid_forward_ref(fwd, x)
+    for a, b in zip([ll] + [d for t in det for d in t],
+                    [rll] + [d for t in rdet for d in t]):
+        assert a.dtype == io and torch.equal(a, b)
+    assert torch.equal(PW.pyramid_inverse(inv, ll, det),
+                       PW.pyramid_inverse_ref(inv, ll, det))
+
+
+@pytest.mark.parametrize("scheme", ("ns-polyconv", "sep-lifting"))
+def test_pyramid_is_one_launch_and_equals_levels(cuda_device, scheme):
+    from repro_torch.kernels import pyramid_window as PW
+    x = torch.randn(4, 96, 160, generator=torch.Generator().manual_seed(2)
+                    ).to(cuda_device)
+    kw = dict(levels=3, scheme=scheme, device=cuda_device)
+    plan = R.get_plan(shape=tuple(x.shape), backend="cuda", fuse="pyramid",
+                      **kw)
+    assert plan.pyramid is not None and plan.launches == 1
+    before = (PW.FORWARD.launches, PW.INVERSE.launches, TW.KERNEL.launches)
+    pyr = R.dwt2(x, fuse="pyramid", **kw)
+    rec = R.idwt2(pyr, fuse="pyramid", scheme=scheme, device=cuda_device)
+    torch.cuda.synchronize()
+    assert (PW.FORWARD.launches, PW.INVERSE.launches, TW.KERNEL.launches) \
+        == (before[0] + 1, before[1] + 1, before[2])
+    lvl = R.dwt2(x, fuse="levels", **kw)
+    for a, b in zip([pyr.ll, *[d for det in pyr.details for d in det]],
+                    [lvl.ll, *[d for det in lvl.details for d in det]]):
+        assert torch.equal(a, b)
+    assert torch.equal(rec, R.idwt2(pyr, fuse="levels", scheme=scheme,
+                                    device=cuda_device))
+    torch.testing.assert_close(rec, x, **ROUNDTRIP_TOL)

@@ -266,7 +266,6 @@ def test_plan_rejects_input_on_another_device():
     (dict(backend="xla"), "PlanKey.backend"),
     (dict(backend="auto"), "PlanKey.backend"),
     (dict(backend="nope"), "PlanKey.backend"),
-    (dict(backend="cuda", fuse="pyramid"), "PlanKey.fuse='pyramid'"),
     (dict(backend="cuda", dtype="float64"), "PlanKey.dtype"),
 ])
 def test_unported_features_raise_at_plan_build(kw, field):

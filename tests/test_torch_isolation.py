@@ -1,6 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor the reference package, and importing the port builds
-nothing (the CUDA kernel is compiled at its first launch)."""
+nothing (each CUDA source is compiled at its kernels' first launch)."""
 import os
 import re
 import subprocess
@@ -20,14 +20,19 @@ import torch
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
-pyr = repro_torch.dwt2(torch.ones(2, 16, 16), levels=2, device="cpu")
-rec = repro_torch.idwt2(pyr, device="cpu")
-assert torch.allclose(rec, torch.ones(2, 16, 16), atol=1e-4)
+for fuse in ("none", "pyramid"):
+    pyr = repro_torch.dwt2(torch.ones(2, 16, 16), levels=2, fuse=fuse,
+                           device="cpu")
+    rec = repro_torch.idwt2(pyr, fuse=fuse, device="cpu")
+    assert torch.allclose(rec, torch.ones(2, 16, 16), atol=1e-4)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
-from repro_torch.kernels import tap_window
-assert tap_window.KERNEL._lib is None and tap_window.KERNEL.launches == 0
+from repro_torch.kernels import pyramid_window, tap_window
+for lib in (tap_window.LIBRARY, pyramid_window.LIBRARY):
+    assert lib._lib is None
+for k in (tap_window.KERNEL, pyramid_window.FORWARD, pyramid_window.INVERSE):
+    assert k.launches == 0
 print("ok")
 """
 

@@ -1,0 +1,640 @@
+"""The fused-pyramid path (``fuse="pyramid"``) of the port, on the CPU.
+
+The CUDA kernels K2/K3 themselves run only on the card
+(``tests/test_torch_cuda.py`` and ``chip_smoke.py``).  Here:
+
+* the margin schedules, per-level reaches, aligned block picks and the
+  subband order against the reference package's, exactly, for every
+  wavelet x scheme x optimize x tap_opt x levels 1-5 x direction;
+* ``dwt2``/``idwt2(fuse="pyramid", backend="cuda", device="cpu")`` (the
+  kernels' plain versions) against the reference's Pallas pyramid
+  kernels run as its own tests run them (interpret mode), and round trips;
+* the encoded pyramid tables against a NumPy walk of them that mirrors
+  ``csrc/pyramid_window.cu`` block by block — the level-0 gather from the
+  interleaved image, regions at each level's shrink, the LL carry split
+  at stride 2, the interleave, the I/O rounding and the masked ragged
+  edge — bit for bit against the plain versions;
+* the shared-memory guard and its fallback to ``fuse="levels"``, the
+  launch model, the wrappers' checks, and the float row mapping the
+  kernels share with the window kernel.
+"""
+import dataclasses
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import compiler as JC
+from repro import engine as JE
+from repro.core import transform as JT
+from repro.core.schemes import SCHEMES
+from repro.engine.plan import scheme_steps as j_scheme_steps
+from repro.kernels import polyphase as JPP
+
+import repro_torch as R
+from repro_torch import compiler as TC
+from repro_torch import engine as TE
+from repro_torch.engine import plan as TPLAN
+from repro_torch.engine.plan import scheme_steps as t_scheme_steps
+from repro_torch.kernels import polyphase as TPP
+from repro_torch.kernels import pyramid_window as PW
+from repro_torch.kernels import tap_window as TW
+
+WAVELETS = ("cdf53", "cdf97", "dd137")
+OPT_LEVELS = ("off", "exact", "full")
+# tests/test_differential.py CROSS_TOL / ROUNDTRIP_TOL (float32)
+CROSS_TOL = dict(rtol=2e-4, atol=2e-5)
+ROUNDTRIP_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+def _image(shape, seed=0, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _planes_np(pyr):
+    """Pyramid -> [LL, coarsest details, ..., finest details] as float32."""
+    planes = [pyr.ll] + [d for det in pyr.details for d in det]
+    return [np.asarray(p.float() if isinstance(p, torch.Tensor) else p,
+                       dtype=np.float32) for p in planes]
+
+
+def _assert_close(got, ref, tol):
+    g, r = _planes_np(got), _planes_np(ref)
+    assert [a.shape for a in g] == [b.shape for b in r]
+    for a, b in zip(g, r):
+        np.testing.assert_allclose(a, b, **tol)
+
+
+def _kernels(wavelet, scheme, levels, tap_opt="full"):
+    """The pyramid spec a cuda plan resolves for a 2048x2048 image (the
+    guard's largest admissible block), or None where it falls back."""
+    key = TE.PlanKey(wavelet=wavelet, scheme=scheme, levels=levels,
+                     shape=(2048, 2048), dtype="float32", backend="cuda",
+                     optimize=False, fuse="pyramid", boundary="periodic",
+                     tap_opt=tap_opt)
+    spec, _ = TPLAN._resolve_pyramid(key, 2048, 2048)
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# schedules, reaches, blocks and subband order: exact parity
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("wavelet", WAVELETS)
+def test_schedules_equal_reference(wavelet, scheme):
+    for optimize, tap_opt, levels, inverse in itertools.product(
+            (False, True), OPT_LEVELS, range(1, 6), (False, True)):
+        opt = optimize and not inverse
+        jprogs = JC.compile_pyramid_programs(wavelet, scheme, opt, inverse,
+                                             tap_opt, levels)
+        tprogs = TC.compile_pyramid_programs(wavelet, scheme, opt, inverse,
+                                             tap_opt, levels)
+        assert (jprogs is None) == (tprogs is None)
+        if jprogs is not None:
+            assert [p.halo for p in jprogs] == [p.halo for p in tprogs]
+        jr = JC.level_reaches(j_scheme_steps(wavelet, scheme, opt, inverse),
+                              jprogs, levels)
+        tr = TC.level_reaches(t_scheme_steps(wavelet, scheme, opt, inverse),
+                              tprogs, levels)
+        assert jr == tr
+        make = "inverse_schedule" if inverse else "forward_schedule"
+        js = getattr(JC, make)(jr, levels)
+        ts = getattr(TC, make)(tr, levels)
+        assert dataclasses.astuple(js) == dataclasses.astuple(ts)
+        assert js.halo == ts.halo
+
+
+@pytest.mark.parametrize("levels", (1, 3, 5))
+@pytest.mark.parametrize("scheme", ("ns-polyconv", "sep-lifting"))
+def test_plan_schedules_equal_reference_plan(scheme, levels, monkeypatch):
+    """The schedules and the block a cuda plan resolves are the reference
+    pallas plan's at the same plane target, with both budgets lifted (each
+    guard has its own memory)."""
+    monkeypatch.setenv(JE.plan.PYRAMID_VMEM_LIMIT_ENV, str(1 << 40))
+    monkeypatch.setenv(TPLAN.PYRAMID_SMEM_LIMIT_ENV, str(1 << 40))
+    for tap_opt in OPT_LEVELS:
+        key = TE.PlanKey(wavelet="cdf97", scheme=scheme, levels=levels,
+                         shape=(2, 64, 96), dtype="float32", backend="cuda",
+                         optimize=False, fuse="pyramid",
+                         boundary="periodic", tap_opt=tap_opt)
+        jkey = JE.PlanKey(wavelet="cdf97", scheme=scheme, levels=levels,
+                          shape=(2, 64, 96), dtype="float32",
+                          backend="pallas", optimize=False, fuse="pyramid",
+                          boundary="periodic", tap_opt=tap_opt)
+        tspec, _ = TPLAN._resolve_pyramid(key, 64, 96)
+        jspec, _ = JE.plan._resolve_pyramid(jkey, 64, 96, TW.BLOCK_TARGET)
+        if tspec is None:     # past the row bounds even at the floor
+            assert not PW.windows_fit(jspec.fwd_sched, jspec.block)
+            continue
+        for a, b in ((tspec.fwd_sched, jspec.fwd_sched),
+                     (tspec.inv_sched, jspec.inv_sched)):
+            assert dataclasses.astuple(a) == dataclasses.astuple(b)
+        if PW.windows_fit(jspec.fwd_sched, jspec.block):
+            assert tspec.block == jspec.block
+            assert tspec.covered_shape == jspec.padded_shape
+
+
+def test_pick_block_aligned_and_out_levels_equal_reference():
+    for n, target, align in itertools.product(
+            range(2, 400, 2), (1, 2, 8, 16, 48, 64, 128, 512),
+            (2, 4, 8, 16, 32)):
+        if n % align == 0:
+            assert TPP._pick_block_aligned(n, target, align) == \
+                JPP._pick_block_aligned(n, target, align)
+    for levels in range(1, 9):
+        assert TPP.pyramid_out_levels(levels) == \
+            JPP.pyramid_out_levels(levels)
+
+
+# ---------------------------------------------------------------------------
+# end-to-end parity with the reference's Pallas pyramid (interpret mode)
+# ---------------------------------------------------------------------------
+
+def _port_pyramid(x, **kw):
+    return R.dwt2(torch.from_numpy(x), backend="cuda", fuse="pyramid",
+                  device="cpu", **kw)
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_pyramid_matches_reference_pallas_pyramid(scheme):
+    """Two levels on 32x48, the port's pyramid path vs the reference's
+    single-pallas_call pyramid, forward and inverse, and round trip."""
+    x = _image((32, 48), seed=2)
+    kw = dict(wavelet="cdf97", levels=2, scheme=scheme)
+    ref = JT.dwt2(jnp.asarray(x), backend="pallas", fuse="pyramid", **kw)
+    pyr = _port_pyramid(x, **kw)
+    _assert_close(pyr, ref, CROSS_TOL)
+    rec = R.idwt2(pyr, wavelet="cdf97", scheme=scheme, backend="cuda",
+                  fuse="pyramid", device="cpu")
+    np.testing.assert_allclose(rec.numpy(), x, **ROUNDTRIP_TOL)
+    ref_rec = JT.idwt2(ref, wavelet="cdf97", scheme=scheme,
+                       backend="pallas", fuse="pyramid")
+    np.testing.assert_allclose(rec.numpy(), np.asarray(ref_rec),
+                               **CROSS_TOL)
+
+
+@pytest.mark.parametrize("case", ["batched", "multiblock", "odd-off"])
+def test_pyramid_matches_reference_pallas_cases(case):
+    """(B, C, H, W) input; a multi-block reference grid (block target
+    (8, 16)); odd 12x20 planes under tap_opt="off" (the reference walks
+    raw matrices, the port the lowered raw walk)."""
+    if case == "batched":
+        x = _image((2, 2, 32, 32), seed=4)
+        kw = dict(wavelet="cdf97", levels=2, scheme="sep-lifting")
+        ref = JT.dwt2(jnp.asarray(x), backend="pallas", fuse="pyramid",
+                      **kw)
+    elif case == "multiblock":
+        x = _image((2, 32, 64), seed=5)
+        kw = dict(wavelet="cdf97", levels=2, scheme="ns-polyconv")
+        key = JE.PlanKey(wavelet="cdf97", scheme="ns-polyconv", levels=2,
+                         shape=(2, 32, 64), dtype="float32",
+                         backend="pallas", optimize=False, fuse="pyramid",
+                         boundary="periodic")
+        plan = JE.build_plan(key, block_target=(8, 16))
+        assert plan.pyramid is not None and plan.pyramid.block == (16, 32)
+        ref = plan.execute(jnp.asarray(x))
+    else:
+        x = _image((24, 40), seed=3)
+        kw = dict(wavelet="cdf97", levels=2, scheme="ns-polyconv",
+                  tap_opt="off")
+        ref = JT.dwt2(jnp.asarray(x), backend="pallas", fuse="pyramid",
+                      **kw)
+    pyr = _port_pyramid(x, **kw)
+    assert tuple(pyr.ll.shape) == tuple(ref.ll.shape)
+    _assert_close(pyr, ref, CROSS_TOL)
+    kw.pop("levels")
+    rec = R.idwt2(pyr, backend="cuda", fuse="pyramid", device="cpu", **kw)
+    np.testing.assert_allclose(rec.numpy(), x, **ROUNDTRIP_TOL)
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_pyramid_equals_levels_on_cpu(scheme):
+    """On the CPU the plain versions are the per-level chain: fuse=
+    "pyramid" equals fuse="levels" bit for bit, at three levels, batched,
+    for both directions."""
+    x = torch.from_numpy(_image((2, 40, 56), seed=6))
+    kw = dict(wavelet="dd137", levels=3, scheme=scheme, backend="cuda",
+              device="cpu")
+    a = R.dwt2(x, fuse="pyramid", **kw)
+    b = R.dwt2(x, fuse="levels", **kw)
+    for p, q in zip(_planes_np(a), _planes_np(b)):
+        np.testing.assert_array_equal(p, q)
+    kw.pop("levels")
+    ra = R.idwt2(a, fuse="pyramid", **kw)
+    rb = R.idwt2(a, fuse="levels", **kw)
+    np.testing.assert_array_equal(ra.numpy(), rb.numpy())
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_torch_backend_pyramid_is_the_level_chain(scheme):
+    x = torch.from_numpy(_image((2, 32, 48), seed=7))
+    kw = dict(levels=3, scheme=scheme, backend="torch", device="cpu")
+    a = R.dwt2(x, fuse="pyramid", **kw)
+    b = R.dwt2(x, fuse="none", **kw)
+    for p, q in zip(_planes_np(a), _planes_np(b)):
+        np.testing.assert_array_equal(p, q)
+
+
+# ---------------------------------------------------------------------------
+# plan: launches, the shared-memory guard and its fallback
+# ---------------------------------------------------------------------------
+
+def test_cuda_pyramid_plan_is_one_launch():
+    plan = TE.get_plan(shape=(8, 2048, 2048), levels=3,
+                       scheme="ns-polyconv", fuse="pyramid", backend="cuda",
+                       device="cpu", cache=TE.PlanCache())
+    assert plan.pyramid is not None and plan.fallback is None
+    assert plan.launches == 1
+    spec = plan.pyramid
+    # the main path: (32, 64) plane target, halved once to fit 227 KB
+    assert spec.block == (32, 64) and spec.target == (16, 32)
+    assert spec.fwd_sched.margins == (32, 12, 4, 0)
+    assert spec.inv_sched.margins == (0, 2, 4, 4)
+    assert spec.smem_bytes <= TW.SMEM_LIMIT
+    caps = {c["backend"]: c for c in TE.capability_matrix()}
+    assert caps["cuda"]["pyramid_kernel"] and "pyramid" in \
+        caps["cuda"]["fuse_modes"]
+    assert not caps["torch"]["pyramid_kernel"]
+
+
+def test_smem_guard_falls_back_to_levels(monkeypatch):
+    """A tiny budget: the plan demotes to fuse="levels", says why,
+    counts it, and computes exactly what fuse="levels" computes."""
+    monkeypatch.setenv(TPLAN.PYRAMID_SMEM_LIMIT_ENV, "4096")
+    before = dict(TE.PYRAMID_COUNTERS)
+    key = TE.PlanKey(wavelet="cdf97", scheme="ns-polyconv", levels=2,
+                     shape=(2, 32, 48), dtype="float32", backend="cuda",
+                     optimize=False, fuse="pyramid", boundary="periodic")
+    plan = TE.build_plan(key)
+    assert plan.pyramid is None
+    assert "executing as fuse='levels'" in plan.fallback
+    assert TE.PYRAMID_COUNTERS["smem_fallbacks"] == \
+        before["smem_fallbacks"] + 1
+    assert plan.launches == 2
+    x = torch.from_numpy(_image((2, 32, 48), seed=8))
+    got = plan.execute(x)
+    want = R.dwt2(x, levels=2, fuse="levels", device="cpu")
+    for p, q in zip(_planes_np(got), _planes_np(want)):
+        np.testing.assert_array_equal(p, q)
+    assert TE.PYRAMID_COUNTERS["pyramid_kernel_launches"] == \
+        before["pyramid_kernel_launches"]
+
+
+def test_deep_separable_pyramid_falls_back_at_default_budget():
+    """L=5 cdf97 sep-lifting: the forward margin is 288 image pixels, so
+    even a 32x32 block's window overflows shared memory."""
+    before = TE.PYRAMID_COUNTERS["smem_fallbacks"]
+    plan = TE.get_plan(shape=(1, 256, 256), levels=5, scheme="sep-lifting",
+                       fuse="pyramid", backend="cuda", device="cpu",
+                       cache=TE.PlanCache())
+    assert plan.pyramid is None and plan.launches == 5
+    assert TE.PYRAMID_COUNTERS["smem_fallbacks"] == before + 1
+
+
+def test_pyramid_counter_counts_executions():
+    before = TE.PYRAMID_COUNTERS["pyramid_kernel_launches"]
+    x = torch.from_numpy(_image((16, 16), seed=9))
+    pyr = R.dwt2(x, levels=2, fuse="pyramid", device="cpu")
+    R.idwt2(pyr, fuse="pyramid", device="cpu")
+    assert TE.PYRAMID_COUNTERS["pyramid_kernel_launches"] == before + 2
+
+
+@pytest.mark.parametrize("levels", (1, 2, 3, 4))
+def test_smem_bytes_is_what_the_kernel_lays_out(levels):
+    """The guard's size: the largest level table, n_slots slots of the
+    largest level window and the LL carry, in 4-byte words."""
+    spec = _kernels("cdf53", "ns-polyconv", levels)
+    for pw in (spec.fwd_kernel, spec.inv_kernel):
+        L, level_ints, n_slots, slot = (int(v) for v in pw.table[:4])
+        assert L == levels
+        wins = PW.level_windows(pw.sched, pw.block)
+        assert slot == max(a * b for a, b in (w.window for w in wins))
+        carry = PW.carry_floats(pw.sched, pw.block)
+        assert pw.smem_bytes == 4 * ((level_ints + 3) // 4 * 4
+                                     + n_slots * slot + carry)
+        if pw.kind == "forward" and levels > 1:
+            assert carry == max(a * b for a, b in
+                                (w.out_region for w in wins[:-1]))
+
+
+def test_hbm_model_of_the_main_path():
+    spec = _kernels("cdf97", "ns-polyconv", 3)
+    fwd = TPP.pyramid_hbm_bytes(spec.fwd_sched, (2048, 2048), 4, (32, 64))
+    inv = TPP.pyramid_hbm_bytes(spec.inv_sched, (2048, 2048), 4, (32, 64))
+    assert fwd.unique == inv.unique == 2 * 2048 * 2048 * 4
+    blocks = 64 * 32
+    assert fwd.modelled == (blocks * 96 * 128 + 2048 * 2048) * 4
+    assert inv.modelled > inv.unique and fwd.modelled > inv.modelled
+
+
+# ---------------------------------------------------------------------------
+# the encoded pyramid tables, walked as csrc/pyramid_window.cu walks them
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    """Round float32 to bfloat16 (round to nearest even), kept in float32."""
+    b = a.astype(np.float32).view(np.uint32).astype(np.uint64)
+    b = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16) << 16
+    return b.astype(np.uint32).view(np.float32)
+
+
+_ROUND_IO = {torch.float32: lambda a: a,
+             torch.float16: lambda a: a.astype(np.float16)
+             .astype(np.float32),
+             torch.bfloat16: _bf16}
+
+
+def _walk(tab, nb, wh, ww, load, sink, rnd):
+    """One window table over a (nb, wh, ww) window, as
+    ``window::walk``: input nodes fill slots from ``load(j)``, lincomb
+    nodes accumulate their region from slots (NaN until written), and
+    output nodes hand ``(mask, ys, xs, values)`` to ``sink``."""
+    n_nodes, n_terms = int(tab[0]), int(tab[1])
+    n_slots = int(tab[2])
+    nodes = tab[4:4 + 8 * n_nodes].reshape(-1, 8)
+    terms = tab[4 + 8 * n_nodes:4 + 8 * n_nodes + 4 * n_terms].reshape(-1, 4)
+    plane = wh * ww
+    slots = np.full((nb, max(n_slots, 1) * plane), np.nan, np.float32)
+    for kind, j, dst, qm, qn, t0, nt, mask in nodes:
+        if kind == 0:
+            ys, xs = np.arange(wh), np.arange(ww)
+            acc = rnd(load(j).reshape(nb, -1))
+        else:
+            ys, xs = np.arange(qn, wh - qn), np.arange(qm, ww - qm)
+            pos = (ys[:, None] * ww + xs[None, :]).ravel()
+            acc = np.zeros((nb, pos.size), np.float32)
+            for t, (off, op, bits, _) in enumerate(terms[t0:t0 + nt]):
+                src = (pos + off) // plane
+                assert (src == src[0]).all() and src[0] != dst
+                s = slots[:, pos + off]
+                assert not np.isnan(s).any(), "read before write"
+                c = np.array(bits, np.int32).view(np.float32)
+                v = s if op == 0 else (-s if op == 1 else rnd(s * c))
+                acc = v if t == 0 else rnd(acc + v)
+        pos = (ys[:, None] * ww + xs[None, :]).ravel()
+        if dst >= 0:
+            slots[:, dst * plane + pos] = acc
+        if mask:
+            sink(mask, ys, xs, acc.reshape(nb, len(ys), len(xs)))
+
+
+def _levels_of(pw):
+    L = int(pw.table[0])
+    out = []
+    for l in range(L):
+        off, r, s, _ = (int(v) for v in pw.table[4 + 4 * l:8 + 4 * l])
+        n_nodes, n_terms = int(pw.table[off]), int(pw.table[off + 1])
+        tab = pw.table[off:off + 4 + 8 * n_nodes + 4 * n_terms]
+        assert int(tab[3]) == r
+        out.append((tab, r, s))
+    return out
+
+
+def _store_core(out, gy0, gx0, ys, xs, vals, r, core, dims, rio):
+    keep_y = (ys >= r) & (ys < r + core[0])
+    keep_x = (xs >= r) & (xs < r + core[1])
+    gy = gy0 + ys[keep_y] - r
+    gx = gx0 + xs[keep_x] - r
+    my, mx = gy < dims[0], gx < dims[1]
+    block = vals[:, keep_y][:, :, keep_x][:, my][:, :, mx]
+    out[:, gy[my][:, None], gx[mx][None, :]] = rio(block)
+
+
+def emulate_forward(pw, x, io=torch.float32):
+    """NumPy walk of K2 over every block: ``x`` (B, H, W) float32 holding
+    values of the I/O dtype ``io``; returns [LL, HL_0, LH_0, HH_0, ...]
+    in pyramid_out_levels order."""
+    rnd = _bf16 if pw.compute_dtype == "bfloat16" else (lambda a: a)
+    rio = _ROUND_IO[io]
+    nb, h, w = x.shape
+    bh, bw = pw.block
+    levels = _levels_of(pw)
+    L = len(levels)
+    outs = [np.full((nb, h >> (l + 1), w >> (l + 1)), np.nan, np.float32)
+            for l in TPP.pyramid_out_levels(L)]
+    for by, bx in itertools.product(range(-(-h // bh)), range(-(-w // bw))):
+        carry = None
+        for l, (tab, r, s) in enumerate(levels):
+            core = (bh >> (l + 1), bw >> (l + 1))
+            wh, ww = core[0] + 2 * r, core[1] + 2 * r
+            if l == 0:
+                rows = (by * bh - 2 * r + 2 * np.arange(wh)) % h
+                cols = (bx * bw - 2 * r + 2 * np.arange(ww)) % w
+                assert (rows % 2 == 0).all() and (cols % 2 == 0).all()
+
+                def load(j, rows=rows, cols=cols):
+                    return x[:, rows + (j >> 1)][:, :, cols + (j & 1)]
+            else:
+                assert carry.shape == (nb, 2 * wh, 2 * ww)
+                assert not np.isnan(carry).any()
+
+                def load(j, c=carry):
+                    return c[:, (j >> 1)::2, (j & 1)::2]
+            last = l + 1 == L
+            new = None if last else np.full(
+                (nb, wh - 2 * s, ww - 2 * s), np.nan, np.float32)
+
+            def sink(mask, ys, xs, vals, l=l, r=r, s=s, core=core, wh=wh,
+                     ww=ww, new=new, last=last):
+                if not last and mask & 1:
+                    ky = (ys >= s) & (ys < wh - s)
+                    kx = (xs >= s) & (xs < ww - s)
+                    new[:, (ys[ky] - s)[:, None], (xs[kx] - s)[None, :]] = \
+                        rnd(rio(vals[:, ky][:, :, kx]))
+                    mask &= ~1
+                dims = (h >> (l + 1), w >> (l + 1))
+                for k in range(4):
+                    if mask >> k & 1:
+                        o = outs[0] if k == 0 else outs[1 + 3 * l + k - 1]
+                        _store_core(o, by * core[0], bx * core[1], ys, xs,
+                                    vals, r, core, dims, rio)
+            _walk(tab, nb, wh, ww, load, sink, rnd)
+            carry = new
+    return outs
+
+
+def emulate_inverse(pw, subbands, io=torch.float32):
+    """NumPy walk of K3 over every block: ``subbands`` float32 in
+    pyramid_out_levels order; returns the (B, H, W) image."""
+    rnd = _bf16 if pw.compute_dtype == "bfloat16" else (lambda a: a)
+    rio = _ROUND_IO[io]
+    levels = _levels_of(pw)
+    L = len(levels)
+    nb = subbands[0].shape[0]
+    h, w = subbands[0].shape[1] << L, subbands[0].shape[2] << L
+    bh, bw = pw.block
+    out = np.full((nb, h, w), np.nan, np.float32)
+    for by, bx in itertools.product(range(-(-h // bh)), range(-(-w // bw))):
+        carry = None
+        for l in range(L - 1, -1, -1):
+            tab, r, s = levels[l]
+            core = (bh >> (l + 1), bw >> (l + 1))
+            wh, ww = core[0] + 2 * r, core[1] + 2 * r
+            hs, ws = h >> (l + 1), w >> (l + 1)
+            rows = (by * core[0] - r + np.arange(wh)) % hs
+            cols = (bx * core[1] - r + np.arange(ww)) % ws
+            planes = [subbands[0]] + list(subbands[1 + 3 * l:4 + 3 * l])
+            if carry is not None:
+                assert carry.shape == (nb, wh, ww)
+                assert not np.isnan(carry).any()
+
+            def load(j, rows=rows, cols=cols, planes=planes, c=carry):
+                if j == 0 and c is not None:
+                    return c
+                return planes[j][:, rows][:, :, cols]
+            new = np.full((nb, 2 * (wh - 2 * s), 2 * (ww - 2 * s)), np.nan,
+                          np.float32)
+
+            def sink(mask, ys, xs, vals, s=s, wh=wh, ww=ww, new=new, l=l):
+                ky = (ys >= s) & (ys < wh - s)
+                kx = (xs >= s) & (xs < ww - s)
+                iy, ix = 2 * (ys[ky] - s), 2 * (xs[kx] - s)
+                v = vals[:, ky][:, :, kx]
+                for k in range(4):
+                    if mask >> k & 1:
+                        new[:, (iy + (k >> 1))[:, None],
+                            (ix + (k & 1))[None, :]] = \
+                            rnd(rio(v)) if l > 0 else v
+            _walk(tab, nb, wh, ww, load, sink, rnd)
+            carry = new
+        assert carry.shape == (nb, bh, bw) and not np.isnan(carry).any()
+        ry = np.arange(by * bh, min(by * bh + bh, h))
+        rx = np.arange(bx * bw, min(bx * bw + bw, w))
+        out[:, ry[:, None], rx[None, :]] = \
+            rio(carry[:, :len(ry), :len(rx)])
+    return out
+
+
+def _emulation_case(wavelet, scheme, levels, tap_opt, block, shape,
+                    io=torch.float32, compute="float32", seed=0):
+    key = TE.PlanKey(wavelet=wavelet, scheme=scheme, levels=levels,
+                     shape=shape, dtype="float32", backend="cuda",
+                     optimize=False, fuse="pyramid", boundary="periodic",
+                     tap_opt=tap_opt)
+    fs, isch, fprogs, iprogs = TPLAN.pyramid_programs(key)
+    fwd = PW.encode_pyramid(fprogs, fs, block, compute)
+    inv = PW.encode_pyramid(iprogs, isch, block, compute)
+    x = torch.from_numpy(_image(shape, seed=seed)).to(io)
+    ll, details = PW.pyramid_forward_ref(fwd, x)
+    want = [ll] + [d for det in details for d in det]
+    got = emulate_forward(fwd, x.float().numpy(), io)
+    for g, wt in zip(got, want):
+        np.testing.assert_array_equal(g, wt.float().numpy())
+    rec = PW.pyramid_inverse_ref(inv, ll, details)
+    got = emulate_inverse(inv, [t.float().numpy() for t in want], io)
+    np.testing.assert_array_equal(got, rec.float().numpy())
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("wavelet", WAVELETS)
+def test_encoded_pyramid_tables_match_plain_versions(wavelet, scheme):
+    """Ragged multi-block images (edge blocks past the image, wrap on
+    every side) at levels 1-3, tap_opt full and off."""
+    for levels, tap_opt in itertools.product((1, 2, 3), ("full", "off")):
+        block = (8, 16) if levels < 3 else (16, 16)
+        _emulation_case(wavelet, scheme, levels, tap_opt, block,
+                        (2, 40, 56), seed=levels)
+
+
+@pytest.mark.parametrize("io,compute", [(torch.float16, "float32"),
+                                        (torch.bfloat16, "float32"),
+                                        (torch.float32, "bfloat16"),
+                                        (torch.float16, "bfloat16")])
+def test_encoded_pyramid_tables_narrow_types(io, compute):
+    """Half-precision I/O rounds LL through the I/O dtype between levels;
+    bfloat16 compute rounds every product and sum."""
+    for scheme in ("ns-polyconv", "sep-lifting"):
+        _emulation_case("cdf97", scheme, 3, "full", (16, 32), (2, 48, 72),
+                        io=io, compute=compute, seed=11)
+
+
+def test_encoded_pyramid_main_path_block():
+    """The main path's block (32, 64) and programs, on a 3x64x192 image
+    (several blocks, one ragged column of blocks)."""
+    _emulation_case("cdf97", "ns-polyconv", 3, "full", (32, 64),
+                    (1, 64, 160), seed=12)
+
+
+# ---------------------------------------------------------------------------
+# wrappers, and the float row mapping the kernels share
+# ---------------------------------------------------------------------------
+
+def test_wrappers_check_and_cpu_path_does_not_count():
+    spec = _kernels("cdf53", "ns-conv", 2)
+    fwd, inv = spec.fwd_kernel, spec.inv_kernel
+    before = (PW.FORWARD.launches, PW.INVERSE.launches)
+    x = torch.randn(2, 16, 24)
+    ll, det = PW.pyramid_forward(fwd, x)
+    PW.pyramid_inverse(inv, ll, det)
+    assert (PW.FORWARD.launches, PW.INVERSE.launches) == before
+    with pytest.raises(ValueError, match="not divisible"):
+        PW.pyramid_forward(fwd, torch.randn(1, 10, 16))
+    with pytest.raises(ValueError, match=r"\(B, H, W\)"):
+        PW.pyramid_forward(fwd, torch.randn(16, 16))
+    with pytest.raises(TypeError, match="unsupported"):
+        PW.pyramid_forward(fwd, x.double())
+    with pytest.raises(ValueError, match="inverse pyramid table"):
+        PW.pyramid_forward(inv, x)
+    with pytest.raises(ValueError, match="pyramid_inverse takes"):
+        PW.pyramid_inverse(inv, ll, det[::-1])
+    with pytest.raises(ValueError, match="multiples of 2\\^levels"):
+        PW.encode_pyramid(fwd.programs, fwd.sched, (6, 16))
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        PW.encode_pyramid(fwd.programs, fwd.sched, (8, 8), "float16")
+
+
+def test_row_formula_is_exact_for_every_window():
+    """``row_of``: floor((i + 0.5) * fl(1 / w)) in float32 equals i // w
+    for every width up to MAX_WINDOW_WIDTH at every index a window of at
+    most MAX_WINDOW_ELEMS positions holds."""
+    i = np.arange(TW.MAX_WINDOW_ELEMS, dtype=np.int64)
+    fi = i.astype(np.float32) + np.float32(0.5)
+    for w in range(1, TW.MAX_WINDOW_WIDTH + 1):
+        inv = np.float32(1.0) / np.float32(w)
+        rows = np.floor(fi * inv).astype(np.int64)
+        assert np.array_equal(rows, i // w), w
+
+
+def test_guards_keep_windows_inside_the_row_bounds():
+    """Every window either guard admits at its largest block fits the
+    bounds the row formula is checked for, and the encoders refuse
+    windows past them."""
+    for w, s, opt, inv, lvl in itertools.product(
+            WAVELETS, SCHEMES, (False, True), (False, True), OPT_LEVELS):
+        for prog in TC.compile_scheme_programs(w, s, opt, inv, lvl,
+                                               "none") + \
+                TC.compile_scheme_programs(w, s, opt, inv, lvl, "scheme"):
+            wh, ww = (e + 2 * prog.halo for e in TW.BLOCK_TARGET)
+            assert ww <= TW.MAX_WINDOW_WIDTH
+            assert wh * ww <= TW.MAX_WINDOW_ELEMS
+    for s, levels in itertools.product(SCHEMES, range(1, 6)):
+        spec = _kernels("dd137", s, levels)
+        if spec is None:
+            continue
+        for pw in (spec.fwd_kernel, spec.inv_kernel):
+            for win in PW.level_windows(pw.sched, pw.block):
+                assert win.window[1] <= TW.MAX_WINDOW_WIDTH
+                assert win.window[0] * win.window[1] <= TW.MAX_WINDOW_ELEMS
+    prog = TC.compile_scheme_programs("cdf97", "ns-polyconv", False, False,
+                                      "full", "scheme")[0]
+    with pytest.raises(ValueError, match="exceeds the kernels' bounds"):
+        TW.encode(prog, (256, 256))
+    spec = _kernels("cdf97", "ns-polyconv", 1)
+    with pytest.raises(ValueError, match="exceeds the kernels' bounds"):
+        PW.encode_pyramid(spec.fwd_kernel.programs, spec.fwd_sched,
+                          (8, 2048))
+
+
+@pytest.mark.parametrize("scheme", ("ns-polyconv", "sep-lifting"))
+def test_one_level_pyramid_does_the_window_kernels_work(scheme):
+    """At one level the forward pyramid's window is K1's: the same term
+    evaluations per image at the matching plane block."""
+    spec = _kernels("cdf97", scheme, 1)
+    prog = spec.fwd_kernel.programs[0]
+    bh, bw = spec.block
+    win = TW.encode(prog, (bh // 2, bw // 2))
+    assert spec.fwd_kernel.term_evaluations((2, 256, 512)) == \
+        win.term_evaluations((2, 128, 256))
