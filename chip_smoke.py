@@ -30,12 +30,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
              round trip must hold to ROUNDTRIP_TOL and the coefficients
              must agree with backend "torch" to CROSS_TOL; "pyramid" must
              equal "levels" bit for bit; a small input must agree with
-             the filter-bank oracle; a plan whose window cannot fit
-             (5 levels of sep-lifting) must fall back to "levels";
+             the filter-bank oracle; a plan whose inverse window cannot
+             fit (7 levels of sep-lifting) must fall back to "levels";
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
-             operations / 67 TFLOP/s); K1's library yardstick is one
+             operations / 67 TFLOP/s); per K1 launch the barriers per
+             tile, the shared reads per position (one per term), the
+             grid and the resident blocks per SM; for K2 the grid, the resident
+             blocks per SM and its LL scratch bytes; K1's library
+             yardstick is one
              F.conv2d of the composed filter bank of the fused level
              (cuDNN with TF32 off); K2/K3 have none (no one PyTorch call
              computes a multi-level pyramid), and are printed beside the
@@ -406,18 +410,19 @@ def phase_main(torch, R, TW, PW, device, cpu, gen):
               f"{cross!r}{extra}")
         del pyr, rec, ref, planes, ref_planes
     print(f"main path launches: {launched}")
-    # the shared-memory guard: 5 levels of sep-lifting cannot fit
+    # the shared-memory guard: 7 levels of sep-lifting cannot fit (the
+    # inverse kernel's windows carry the compound margin)
     from repro_torch.engine import PYRAMID_COUNTERS
     before = PYRAMID_COUNTERS["smem_fallbacks"]
     deep = torch.randn((1, 256, 256), generator=gen).to(device)
-    plan = R.get_plan(shape=tuple(deep.shape), wavelet=wav, levels=5,
+    plan = R.get_plan(shape=tuple(deep.shape), wavelet=wav, levels=7,
                       scheme="sep-lifting", fuse="pyramid", backend="cuda",
                       device=device, cache=R.PlanCache())
-    check(plan.pyramid is None and plan.launches == 5
+    check(plan.pyramid is None and plan.launches == 7
           and PYRAMID_COUNTERS["smem_fallbacks"] == before + 1,
-          f"5-level sep-lifting did not fall back: {plan.fallback}")
+          f"7-level sep-lifting did not fall back: {plan.fallback}")
     a = plan.execute(deep)
-    bb = R.dwt2(deep, wavelet=wav, levels=5, scheme="sep-lifting",
+    bb = R.dwt2(deep, wavelet=wav, levels=7, scheme="sep-lifting",
                 fuse="levels", device=device)
     check(all(torch.equal(p, q) for p, q in
               zip([a.ll] + [d for det in a.details for d in det],
@@ -425,6 +430,14 @@ def phase_main(torch, R, TW, PW, device, cpu, gen):
           "fallback plan differs from fuse='levels'")
     print(f"fallback: {plan.fallback}")
     return launched, plans, x
+
+
+def _pyramid_bytes(PP, pw, h, w):
+    """Modelled and unique bytes of one fused-pyramid launch per image."""
+    if pw.kind == "forward":
+        return PP.pyramid_hbm_bytes(pw.sched, (h, w), 4, pw.level_blocks,
+                                    halos=[p.halo for p in pw.programs])
+    return PP.pyramid_hbm_bytes(pw.sched, (h, w), 4, pw.block)
 
 
 def _time_transforms(torch, R, PP, device, plans, x, timer):
@@ -437,10 +450,9 @@ def _time_transforms(torch, R, PP, device, plans, x, timer):
                       device=device)
         if plan.pyramid is not None:
             spec = plan.pyramid
-            model = {op: PP.pyramid_hbm_bytes(
-                sched, tuple(x.shape[-2:]), 4, spec.block).modelled * b
-                for op, sched in (("fwd", spec.fwd_sched),
-                                  ("inv", spec.inv_sched))}
+            model = {op: _pyramid_bytes(PP, pw, *x.shape[-2:]).modelled * b
+                     for op, pw in (("fwd", spec.fwd_kernel),
+                                    ("inv", spec.inv_kernel))}
         else:
             # modelled bytes of the kernel path: every launch's windows
             # and outputs plus the split/merge copy, summed over the levels
@@ -477,7 +489,8 @@ def phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer):
     torch.backends.cuda.matmul.allow_tf32 = False
     print("cudnn.allow_tf32 = False, cuda.matmul.allow_tf32 = False")
     print("config,level,launch,planes,halo,block,smem,kernel_ms,plain_ms,"
-          "bytes,GB/s,bound_ms,bound_by,ops,term_evals")
+          "bytes,GB/s,bound_ms,bound_by,ops,term_evals,barriers,"
+          "reads_per_position,grid,blocks_per_sm")
     b = x.shape[0]
     entries = {}
     for (scheme, fuse), plan in plans.items():
@@ -489,6 +502,7 @@ def phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer):
                              (b, hp, wp), torch.float32, device)
             for i, win in enumerate(spec.fwd_windows):
                 k_ms = timer.ms(lambda: TW.tap_window(win, planes))
+                grid, per_sm = TW.KERNEL.last_grid
                 p_ms = timer.ms(lambda: TW.tap_window_ref(win, planes),
                                 reps=5, warmup=1)
                 nbytes = 8 * b * hp * wp * 4
@@ -502,7 +516,8 @@ def phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer):
                       f"{win.halo},{win.block[0]}x{win.block[1]},"
                       f"{win.smem_bytes},{k_ms:.4f},{p_ms:.4f},{nbytes},"
                       f"{nbytes / k_ms / 1e6:.1f},{bound:.4f},{by},{ops},"
-                      f"{win.term_evaluations((b, hp, wp))}")
+                      f"{win.term_evaluations((b, hp, wp))},{win.barriers},"
+                      f"{win.terms},{grid},{per_sm}")
                 if (scheme, fuse) == ("ns-polyconv", "scheme") \
                         and spec.index == 0:
                     conv = CV.lower_program_to_conv(win.program)
@@ -533,7 +548,8 @@ def phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer):
     # the fused-pyramid kernels at the main path's pyramid
     print("kernel,image,block,smem,kernel_ms,plain_ms,unique_bytes,"
           "unique_GB/s,model_bytes,model_GB/s,bound_ms,bound_by,"
-          "bound_share,ops,term_evals,levels_ms")
+          "bound_share,ops,term_evals,levels_ms,grid,blocks_per_sm,"
+          "scratch_bytes")
     plan = plans[("ns-polyconv", "pyramid")]
     spec = plan.pyramid
     h, w = x.shape[-2:]
@@ -552,8 +568,16 @@ def phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer):
              lambda: PW.pyramid_inverse_ref(spec.inv_kernel, ll, det),
              times[("ns-polyconv", "levels", "cuda")][1])):
         k_ms = timer.ms(run)
+        kernel = PW.FORWARD if name == "pyramid_forward" else PW.INVERSE
+        grid, per_sm = kernel.last_grid
         p_ms = timer.ms(ref, reps=5, warmup=1)
-        nb = PP.pyramid_hbm_bytes(pw.sched, (h, w), 4, pw.block)
+        nb = _pyramid_bytes(PP, pw, h, w)
+        scratch = (sum(b * (h >> (l + 1)) * (w >> (l + 1))
+                       for l in range(pw.levels - 1)) * 4
+                   if name == "pyramid_forward" else 0)
+        block = ("/".join(f"{a}x{c}" for a, c in pw.level_blocks)
+                 if name == "pyramid_forward"
+                 else f"{pw.block[0]}x{pw.block[1]}")
         unique, modelled = nb.unique * b, nb.modelled * b
         ops = sum((p.stats()["muls"] + p.stats()["adds"]) * b
                   * (h >> (l + 1)) * (w >> (l + 1))
@@ -562,12 +586,12 @@ def phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer):
         t_ops = ops / FP32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{name},{b}x{h}x{w},{pw.block[0]}x{pw.block[1]},"
+        print(f"{name},{b}x{h}x{w},{block},"
               f"{pw.smem_bytes},{k_ms:.4f},{p_ms:.4f},{unique},"
               f"{unique / k_ms / 1e6:.1f},{modelled},"
               f"{modelled / k_ms / 1e6:.1f},{bound:.4f},{by},"
               f"{bound / k_ms:.4f},{ops},{pw.term_evaluations((b, h, w))},"
-              f"{levels_ms:.4f}")
+              f"{levels_ms:.4f},{grid},{per_sm},{scratch}")
         entries[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                              bound_by=by, library_ms=None,
                              levels_ms=levels_ms)

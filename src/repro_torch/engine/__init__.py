@@ -10,12 +10,13 @@ from repro_torch.engine.cache import (PlanCache, clear_plan_cache,
                                       get_plan, plan_cache_stats)
 from repro_torch.engine.plan import COUNTERS as PYRAMID_COUNTERS
 from repro_torch.engine.plan import (DwtPlan, LevelSpec, PlanKey,
-                                     PyramidSpec, build_plan, resolve_device,
-                                     validate_image_geometry)
+                                     PyramidSpec, build_plan, canonical_key,
+                                     resolve_device, validate_image_geometry)
 from repro_torch.engine.pyramid import Pyramid
 
 __all__ = ["Backend", "BackendError", "DwtPlan", "LevelSpec", "PlanCache",
            "PlanKey", "PYRAMID_COUNTERS", "Pyramid", "PyramidSpec",
-           "available_backends", "build_plan", "capability_matrix",
+           "available_backends", "build_plan", "canonical_key",
+           "capability_matrix",
            "clear_plan_cache", "get_backend", "get_plan", "plan_cache_stats",
            "register_backend", "resolve_device", "validate_image_geometry"]

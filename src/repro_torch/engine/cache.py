@@ -13,7 +13,7 @@ from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
 from repro_torch.engine.plan import (DwtPlan, PlanKey, build_plan,
-                                     resolve_device)
+                                     canonical_key, resolve_device)
 
 
 class PlanCache:
@@ -28,6 +28,7 @@ class PlanCache:
 
     def get(self, key: PlanKey,
             build: Callable[[PlanKey], DwtPlan] = build_plan) -> DwtPlan:
+        key = canonical_key(key)
         with self._lock:
             plan = self._plans.get(key)
             if plan is not None:

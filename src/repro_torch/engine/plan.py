@@ -20,12 +20,14 @@ Execution semantics (see :mod:`repro_torch.engine.backends` /
   halo); PyTorch runs eagerly, so the two differ only in name;
 * ``fuse="pyramid"`` — on the ``cuda`` backend the whole multi-level
   transform is **one launch** of a fused-pyramid kernel (forward K2,
-  inverse K3, :mod:`repro_torch.kernels.pyramid_window`): polyphase
-  split/merge happens in shared memory on compound-halo windows of the
-  interleaved image and the LL plane never touches device memory between
-  levels.  A shared-memory guard falls back to ``"levels"`` execution
-  when even the smallest ``2^levels``-aligned block does not fit
-  (``$REPRO_TORCH_PYRAMID_SMEM_LIMIT`` bytes, default
+  inverse K3, :mod:`repro_torch.kernels.pyramid_window`).  K2 is one
+  cooperative launch that runs the levels in turn over the whole image,
+  each at the per-level path's block and halo, the split folded into its
+  gather and the LL between levels in a scratch plane; K3 merges in
+  shared memory on compound-halo windows and keeps every intermediate LL
+  there.  A shared-memory guard falls back to ``"levels"`` execution
+  when a level of K2, or K3 even at the smallest ``2^levels``-aligned
+  block, does not fit (``$REPRO_TORCH_PYRAMID_SMEM_LIMIT`` bytes, default
   :data:`~repro_torch.kernels.tap_window.SMEM_LIMIT`), counted in
   :data:`COUNTERS` and stated in ``plan.fallback``.  On the ``torch``
   backend ``"pyramid"`` runs the per-level chain (bit-identical to
@@ -110,7 +112,9 @@ class PlanKey:
     tensor dtype); ``tap_opt`` is the tap-program compilation level
     ("off" = raw matrix walk, "exact" = bit-preserving compilation,
     "full" = fold + CSE + rank-1 factorization); ``device`` is where the
-    plan executes (``"cuda:0"``, ``"cpu"``).
+    plan executes (``"cuda"``, the default, or ``"cuda:0"``, ``"cpu"``);
+    :func:`build_plan` and the plan cache resolve it with
+    :func:`resolve_device` (see :func:`canonical_key`).
     """
 
     wavelet: str
@@ -124,11 +128,20 @@ class PlanKey:
     boundary: str
     compute_dtype: str = "float32"
     tap_opt: str = "full"
-    device: str = "cpu"
+    device: str = "cuda"
     # reference features not ported yet: must stay at these values
     tiles: Optional[Tuple[int, int]] = None
     packet: Optional[Tuple[str, ...]] = None
     ndim: int = 2
+
+
+def canonical_key(key: PlanKey) -> PlanKey:
+    """``key`` with its device resolved (``"cuda"`` -> ``"cuda:<current>"``),
+    so every spelling of one device plans once; raises where a CUDA
+    device is asked for and there is none."""
+    device = str(resolve_device(key.device))
+    return key if device == key.device else dataclasses.replace(
+        key, device=device)
 
 
 def max_feasible_levels(h: int, w: int) -> int:
@@ -192,8 +205,9 @@ class PyramidSpec:
     covered_shape: Tuple[int, int]    # image dims covered by whole blocks
     fwd_sched: C.PyramidSchedule
     inv_sched: C.PyramidSchedule
-    # the two kernels, encoded at ``block`` with one whole-chain program
-    # per level (see pyramid_programs)
+    # the two kernels with one whole-chain program per level (see
+    # pyramid_programs): the inverse at ``block``, the forward at each
+    # level's own block (``fwd_kernel.level_blocks``)
     fwd_kernel: PW.PyramidWindow
     inv_kernel: PW.PyramidWindow
 
@@ -326,44 +340,55 @@ def _resolve_pyramid(key: PlanKey, h: int, w: int,
                      ) -> Tuple[Optional[PyramidSpec], Optional[str]]:
     """Resolve the fused-pyramid kernels of a plan.
 
-    The shared-memory guard halves both edges of the plane-space block
-    target (down to the ``2^levels`` image-space floor) until both
-    launches fit :func:`pyramid_smem_limit` (and every level window the
-    kernels' row bounds, which the default limit already implies); only
-    when even the smallest phase-alignable block is over budget does the
-    plan fall back to ``fuse="levels"`` execution (counted in
-    :data:`COUNTERS`)."""
+    The forward kernel runs each level at the window kernel's block for
+    that level (:func:`~repro_torch.kernels.tap_window.fit_block` of the
+    level's two programs, as ``fuse="levels"`` picks it) with its own
+    halo: its shared memory is the largest per-level footprint.  The
+    inverse kernel's guard halves both edges of the plane-space block
+    target (down to the ``2^levels`` image-space floor) until its launch
+    fits, and its windows the kernels' row bounds (which the default limit
+    already implies).  Both must fit :func:`pyramid_smem_limit`; where
+    either does not, the plan falls back to ``fuse="levels"`` execution
+    (counted in :data:`COUNTERS`) and says which direction did not
+    fit."""
     L = key.levels
     fwd_sched, inv_sched, fwd_kprogs, inv_kprogs = pyramid_programs(key)
-    align = 1 << L
     limit = pyramid_smem_limit()
+    cdt = key.compute_dtype
+    try:
+        fwd_blocks = tuple(
+            TW.fit_block((fp, ip), h >> (l + 1), w >> (l + 1), limit=limit)
+            for l, (fp, ip) in enumerate(zip(fwd_kprogs, inv_kprogs)))
+    except TW.SmemError as e:
+        count("smem_fallbacks")
+        return None, (f"forward pyramid: a level's {e}; executing as "
+                      f"fuse='levels'")
+    align = 1 << L
     target = (int(block_target[0]), int(block_target[1]))
     floor = max(1, align // 2)      # image-space block floor = 2^levels
     while True:
         bh, hp2 = PP._pick_block_aligned(h, 2 * target[0], align)
         bw, wp2 = PP._pick_block_aligned(w, 2 * target[1], align)
-        need = max(PW.smem_bytes(fwd_kprogs, fwd_sched, (bh, bw)),
-                   PW.smem_bytes(inv_kprogs, inv_sched, (bh, bw)))
-        if need <= limit and PW.windows_fit(fwd_sched, (bh, bw)) \
-                and PW.windows_fit(inv_sched, (bh, bw)):
-            cdt = key.compute_dtype
+        need = PW.smem_bytes(inv_kprogs, inv_sched, (bh, bw))
+        if need <= limit and PW.windows_fit(inv_sched, (bh, bw)):
             return PyramidSpec(
                 target=target, block=(bh, bw), covered_shape=(hp2, wp2),
                 fwd_sched=fwd_sched, inv_sched=inv_sched,
-                fwd_kernel=PW.encode_pyramid(fwd_kprogs, fwd_sched,
-                                             (bh, bw), cdt),
-                inv_kernel=PW.encode_pyramid(inv_kprogs, inv_sched,
+                fwd_kernel=PW.encode_forward(fwd_kprogs, fwd_sched,
+                                             fwd_blocks, cdt),
+                inv_kernel=PW.encode_inverse(inv_kprogs, inv_sched,
                                              (bh, bw), cdt)), None
         smaller = (max(target[0] // 2, floor), max(target[1] // 2, floor))
         if smaller == target:
             break
         target = smaller
     count("smem_fallbacks")
-    m = fwd_sched.margins[0]
+    m = inv_sched.margins[1]
     why = (f"needs {need} B of shared memory > limit {limit} B"
            if need > limit else "exceeds the kernels' window bounds")
-    return None, (f"pyramid window {(bh + 2 * m, bw + 2 * m)} {why} even "
-                  f"at the minimum block; executing as fuse='levels'")
+    return None, (f"inverse pyramid window "
+                  f"{((bh >> 1) + 2 * m, (bw >> 1) + 2 * m)} {why} even at "
+                  f"the minimum block; executing as fuse='levels'")
 
 
 def build_plan(key: PlanKey) -> DwtPlan:
@@ -378,6 +403,7 @@ def build_plan(key: PlanKey) -> DwtPlan:
     :class:`~repro_torch.engine.backends.BackendError` here, at plan
     build, with the offending PlanKey field named.
     """
+    key = canonical_key(key)
     backend = B.get_backend(key.backend)
     if key.fuse not in FUSE_MODES:
         raise ValueError(f"unknown fuse mode {key.fuse!r}; "

@@ -96,35 +96,47 @@ class PyramidBytes(NamedTuple):
 
 
 def pyramid_hbm_bytes(sched, shape: Tuple[int, int], itemsize: int,
-                      block: Tuple[int, int]) -> PyramidBytes:
+                      block, halos: Optional[Sequence[int]] = None
+                      ) -> PyramidBytes:
     """Modelled device-memory bytes of one fused-pyramid launch on a
     (H, W) image, for the direction of ``sched`` (a forward or inverse
-    :class:`~repro_torch.compiler.pyramid.PyramidSchedule`), at the
-    image-space ``block``.
+    :class:`~repro_torch.compiler.pyramid.PyramidSchedule`).
 
     The port's kernels pad nothing: every window is gathered with mod
-    indexing from the unpadded image or subbands, the blocks cover each
-    axis with a ragged last block, and every store is masked to the true
-    dims.  Forward: each block reads one ``(bh+2M) x (bw+2M)`` window of
-    the image (``M = sched.margins[0]``) and every subband is written
-    once.  Inverse: each block reads the coarsest-LL window (margin
-    ``margins[L]``) and each level's three detail windows (margin
-    ``margins[l+1]``), and the image is written once.
+    indexing from the unpadded image, subbands or LL scratch, the blocks
+    cover each axis with a ragged last block, and every store is masked
+    to the true dims.
+
+    * Forward (``block``: the plane-space block of each level, ``halos``:
+      each level program's halo): level ``l`` reads the four
+      ``(bh+2r) x (bw+2r)`` polyphase windows of every tile of its image
+      (the input, or the LL level ``l-1`` wrote), overlap counted, and
+      writes its four outputs once (HL/LH/HH, and LL to the scratch or,
+      at the last level, the LL output): one write and one read of each
+      intermediate LL.
+    * Inverse (``block``: the image-space block): each block reads the
+      coarsest-LL window (margin ``margins[L]``) and each level's three
+      detail windows (margin ``margins[l+1]``), and the image is written
+      once.
     """
     h, w = shape
     L = sched.levels
-    bh, bw = block
-    blocks = -(-h // bh) * -(-w // bw)
     image = h * w
     if sched.kind == "forward":
-        M = sched.margins[0]
-        reads = blocks * (bh + 2 * M) * (bw + 2 * M)
-    else:
-        reads = 0
-        for k, l in enumerate(pyramid_out_levels(L)):
-            g = sched.margins[L] if k == 0 else sched.margins[l + 1]
-            reads += blocks * ((bh >> (l + 1)) + 2 * g) \
-                * ((bw >> (l + 1)) + 2 * g)
+        total = 0
+        for l, ((bh, bw), r) in enumerate(zip(block, halos)):
+            hp, wp = h >> (l + 1), w >> (l + 1)
+            tiles = -(-hp // bh) * -(-wp // bw)
+            total += 4 * tiles * (bh + 2 * r) * (bw + 2 * r) + 4 * hp * wp
+        return PyramidBytes(modelled=total * itemsize,
+                            unique=2 * image * itemsize)
+    bh, bw = block
+    blocks = -(-h // bh) * -(-w // bw)
+    reads = 0
+    for k, l in enumerate(pyramid_out_levels(L)):
+        g = sched.margins[L] if k == 0 else sched.margins[l + 1]
+        reads += blocks * ((bh >> (l + 1)) + 2 * g) \
+            * ((bw >> (l + 1)) + 2 * g)
     # the subbands partition the image: h*w samples in all
     return PyramidBytes(modelled=(reads + image) * itemsize,
                         unique=2 * image * itemsize)

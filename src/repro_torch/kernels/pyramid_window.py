@@ -11,30 +11,32 @@ kernels through ``ctypes`` (built and bound like the window kernel,
 plain versions, :func:`pyramid_forward_ref` and :func:`pyramid_inverse_ref`.
 
 What bounds them on an H100: the unique bytes are two passes over the
-image (it is read once, every subband written once, or the reverse), but
-the work is the table walk of K1 over windows that carry the compound
-margin of every level, so the level-0 arithmetic is several times that
-of the per-level path.  What the design does: every intermediate LL
-plane stays in shared memory (no split, merge or LL round trip through
-device memory between levels), windows are gathered with mod indexing
-from the unpadded image or subbands, and the ragged edge is masked.
+image (it is read once, every subband written once, or the reverse); the
+work is the window kernel's table walk.
 
-Each level ``l`` runs program ``l`` as the window kernel runs a program
-(the same table format and walk, ``csrc/window_common.cuh``), except
-that its regions come from :func:`~repro_torch.compiler.execute.
-required_margins` at ``sched.shrinks[l]``, not at the program halo:
+* K2 (forward) is one cooperative launch of persistent blocks that run
+  the levels in turn and meet at a grid-wide barrier between them.
+  Level ``l`` does the window kernel's work on the four polyphase planes
+  of its image (the input, or the LL level ``l-1`` wrote to a scratch
+  plane), at the block the per-level path picks for that level
+  (:func:`~repro_torch.kernels.tap_window.fit_block`), with only program
+  ``l``'s own halo: the same term evaluations as ``fuse="levels"``,
+  without its split copies and launch gaps.  The split is folded into
+  the gather; LL is stored in the I/O dtype between levels, as the
+  per-level path stores it.
+* K3 (inverse) runs every level of one image-space block in one block,
+  coarsest first, with every intermediate LL plane in shared memory: its
+  windows carry the compound margin of the coarser levels.  Level ``l``
+  runs program ``l`` with its outputs at margin ``sched.shrinks[l]`` in a
+  window of halo ``margins[l+1]`` around the ``(bh >> l+1) x
+  (bw >> l+1)`` core (the interleaved outputs are the next finer level's
+  LL window; at level 0 exactly the block).
 
-* forward, level ``l``: a window of halo ``margins[l] / 2`` plane samples
-  around the ``(bh >> l+1) x (bw >> l+1)`` core, outputs at margin
-  ``shrinks[l]`` (the LL output region is the next level's image window);
-* inverse, level ``l``: a window of halo ``margins[l+1]`` around the same
-  core, outputs at margin ``shrinks[l]`` (interleaved, the next finer
-  level's LL window; at level 0 exactly the block).
-
-Per position the arithmetic is the per-level path's left fold over the
-same terms, and LL is rounded through the I/O dtype between levels as
-the per-level path stores it, so both kernels equal their plain versions
-(the per-level chain of :func:`~repro_torch.kernels.tap_window.window_ref`)
+Both walk the window kernel's table format (``csrc/window_common.cuh``),
+one table per level.  Per position the arithmetic is the per-level
+path's left fold over the same terms, and LL is rounded through the I/O
+dtype between levels, so both kernels equal their plain versions (the
+per-level chain of :func:`~repro_torch.kernels.tap_window.window_ref`)
 bit for bit.
 """
 from __future__ import annotations
@@ -42,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,15 +60,15 @@ SOURCE = TW.CSRC / "pyramid_window.cu"
 MAX_LEVELS = 8
 
 # table layout, shared with csrc/pyramid_window.cu
-_PYR_HEADER = 4      # levels, level_ints, n_slots, slot_floats
-_LEVEL_INTS = 4      # offset, halo, shrink, unused
+_PYR_HEADER = 8      # levels, level_ints, n_slots, slot_floats, front, back
+_LEVEL_INTS = 4      # offset, then K2: bh, bw, 0; K3: halo, shrink, 0
 
 
 @dataclasses.dataclass(frozen=True)
 class LevelWindow:
-    """Where level ``l`` of one fused-pyramid kernel works: a ``wh x ww``
-    plane window of halo ``halo`` around the ``core`` block, outputs at
-    margin ``shrink``."""
+    """Where level ``l`` of the inverse kernel works: a ``wh x ww`` plane
+    window of halo ``halo`` around the ``core`` block, outputs at margin
+    ``shrink``."""
 
     halo: int
     shrink: int
@@ -84,75 +86,97 @@ class LevelWindow:
 
 def level_windows(sched: PyramidSchedule, block: Tuple[int, int]
                   ) -> Tuple[LevelWindow, ...]:
-    """The per-level windows of one launch at the image-space ``block``,
-    finest level first (both directions)."""
-    L = sched.levels
-    out = []
-    for l in range(L):
-        halo = (sched.margins[l] // 2 if sched.kind == "forward"
-                else sched.margins[l + 1])
-        out.append(LevelWindow(halo=halo, shrink=sched.shrinks[l],
-                               core=(block[0] >> (l + 1),
-                                     block[1] >> (l + 1))))
-    return tuple(out)
+    """The per-level windows of one inverse launch at the image-space
+    ``block``, finest level first."""
+    if sched.kind != "inverse":
+        raise ValueError("level_windows: the forward kernel's windows are "
+                         "the window kernel's at each level's block")
+    return tuple(LevelWindow(halo=sched.margins[l + 1],
+                             shrink=sched.shrinks[l],
+                             core=(block[0] >> (l + 1), block[1] >> (l + 1)))
+                 for l in range(sched.levels))
 
 
 def carry_floats(sched: PyramidSchedule, block: Tuple[int, int]) -> int:
-    """Floats of the LL carry: forward, the largest LL output region a
-    later level splits; inverse, the largest interleaved output a finer
-    level reads."""
-    wins = level_windows(sched, block)
-    if sched.kind == "forward":
-        regions = [w.out_region for w in wins[:-1]]
-        return max((a * b for a, b in regions), default=0)
-    regions = [w.out_region for w in wins[1:]]
+    """Floats of the inverse kernel's LL carry: the largest interleaved
+    output a finer level reads."""
+    regions = [w.out_region for w in level_windows(sched, block)[1:]]
     return max((4 * a * b for a, b in regions), default=0)
 
 
 def windows_fit(sched: PyramidSchedule, block: Tuple[int, int]) -> bool:
-    """True when every level window lies inside the bounds the kernels'
-    row mapping is checked for (:func:`~repro_torch.kernels.tap_window.
-    check_window`)."""
+    """True when every inverse level window lies inside the bounds the
+    kernels' row mapping is checked for (:func:`~repro_torch.kernels.
+    tap_window.check_window`)."""
     return all(w.window[1] <= TW.MAX_WINDOW_WIDTH
                and w.window[0] * w.window[1] <= TW.MAX_WINDOW_ELEMS
                for w in level_windows(sched, block))
 
 
-def _sizes(programs, sched, block):
-    """Per-level layouts (outputs at the level's shrink), and the shared
-    memory they need: (layouts, level_ints, n_slots, slot_floats)."""
+def _inverse_sizes(programs, sched, block):
+    """Per-level layouts (outputs at the level's shrink) of the inverse
+    kernel, its positions per thread (chosen for the largest window, level
+    0's) and its shared-memory layout: (layouts, elems, level_ints,
+    n_slots, slot_floats, front, back)."""
     lays = [TW.layout(p, s) for p, s in zip(programs, sched.shrinks)]
-    slot = max(w.window[0] * w.window[1] for w in level_windows(sched, block))
-    return (lays, max(TW.table_ints(lay) for lay in lays),
-            max(lay.n_slots for lay in lays), slot)
+    wins = level_windows(sched, block)
+    elems = TW.choose_elems(lays[0], *wins[0].window)
+    pads = [TW.pads(w.halo, w.window[1], elems) for w in wins]
+    return (lays, elems, max(TW.table_ints(lay) for lay in lays),
+            max(lay.n_slots for lay in lays),
+            max(w.window[0] * w.window[1] for w in wins),
+            max(f for f, _ in pads), max(b for _, b in pads))
 
 
 def smem_bytes(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
                block: Tuple[int, int]) -> int:
-    """Dynamic shared memory of one launch, exactly as the kernel lays it
-    out: one level's table, ``n_slots`` fp32 slots the size of the
-    largest level window, and the LL carry."""
-    _, level_ints, n_slots, slot = _sizes(programs, sched, block)
-    return 4 * ((level_ints + 3) // 4 * 4 + n_slots * slot
-                + carry_floats(sched, block))
+    """Dynamic shared memory of one inverse launch, exactly as the kernel
+    lays it out: the largest level table, the front pad, one input stage
+    and ``n_slots`` slots the size of the largest level window, the back
+    pad and the LL carry."""
+    _, _, level_ints, n_slots, slot, front, back = _inverse_sizes(
+        programs, sched, block)
+    return 4 * ((level_ints + 3) // 4 * 4 + front + (4 + n_slots) * slot
+                + back + carry_floats(sched, block))
+
+
+def forward_elems(programs: Sequence[ir.TapProgram],
+                  blocks: Sequence[Tuple[int, int]]) -> int:
+    """Positions per thread of the forward kernel: those level 0 (the
+    largest) would pick alone."""
+    p, (bh, bw) = programs[0], blocks[0]
+    return TW.choose_elems(TW.layout(p), bh + 2 * p.halo, bw + 2 * p.halo)
+
+
+def forward_smem_bytes(programs: Sequence[ir.TapProgram],
+                       blocks: Sequence[Tuple[int, int]]) -> int:
+    """Dynamic shared memory of one forward launch: the largest window
+    kernel footprint of its levels (each at its own block)."""
+    elems = forward_elems(programs, blocks)
+    return max(TW.smem_bytes(p, b, elems) for p, b in zip(programs, blocks))
 
 
 @dataclasses.dataclass(eq=False)
 class PyramidWindow:
-    """One fused-pyramid kernel (forward or inverse) encoded at one
-    image-space block.
+    """One fused-pyramid kernel (forward or inverse), encoded.
 
     ``table`` is the int32 pyramid table the kernel walks; it is uploaded
     once per device (:meth:`device_table`) and reused by every launch.
+    ``level_blocks`` are the plane-space blocks of each level: the
+    forward kernel's tiles, the inverse kernel's cores.  ``block`` is the
+    image-space block: the inverse kernel's, twice the forward kernel's
+    level-0 tile.
     """
 
     kind: str                               # "forward" | "inverse"
     programs: Tuple[ir.TapProgram, ...]     # one per level, finest first
     sched: PyramidSchedule
-    block: Tuple[int, int]                  # image-space (bh, bw)
+    block: Tuple[int, int]
+    level_blocks: Tuple[Tuple[int, int], ...]
     compute_dtype: str
     table: np.ndarray
     smem_bytes: int
+    elems: int                              # walk positions per thread
     _tables: Dict[torch.device, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
     _lock: threading.Lock = dataclasses.field(
@@ -162,9 +186,21 @@ class PyramidWindow:
     def levels(self) -> int:
         return self.sched.levels
 
+    def level_tiles(self, shape: Tuple[int, int, int]) -> Tuple[int, ...]:
+        """Forward: tiles of each level over a ``(B, H, W)`` image."""
+        nb, h, w = shape
+        return tuple(nb * -(-(h >> (l + 1)) // bh) * -(-(w >> (l + 1)) // bw)
+                     for l, (bh, bw) in enumerate(self.level_blocks))
+
     def term_evaluations(self, shape: Tuple[int, int, int]) -> int:
         """Term evaluations of one launch over a ``(B, H, W)`` image, all
-        levels (the window recompute included)."""
+        levels (the inverse's window recompute included)."""
+        if self.kind == "forward":
+            return sum(
+                n * TW.walk_terms(p, TW.layout(p), bh + 2 * p.halo,
+                                  bw + 2 * p.halo)
+                for n, p, (bh, bw) in zip(self.level_tiles(shape),
+                                          self.programs, self.level_blocks))
         nb, h, w = shape
         blocks = nb * -(-h // self.block[0]) * -(-w // self.block[1])
         return blocks * sum(
@@ -181,49 +217,82 @@ class PyramidWindow:
             return t
 
 
-def encode_pyramid(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
-                   block: Tuple[int, int],
-                   compute_dtype: str = "float32") -> PyramidWindow:
-    """Encode one fused-pyramid kernel (the direction of ``sched``) for
-    launches at the image-space ``block`` (see the table layout in
-    ``csrc/pyramid_window.cu``)."""
-    programs = tuple(programs)
-    L = sched.levels
+def _check_encode(programs, levels: int, compute_dtype: str) -> None:
     if compute_dtype not in TW.COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}; "
                          f"available: {tuple(TW.COMPUTE_DTYPES)}")
-    if not 1 <= L <= MAX_LEVELS:
-        raise ValueError(f"levels {L} outside 1..{MAX_LEVELS}")
-    if len(programs) != L:
-        raise ValueError(f"need {L} per-level programs, got {len(programs)}")
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"levels {levels} outside 1..{MAX_LEVELS}")
+    if len(programs) != levels:
+        raise ValueError(f"need {levels} per-level programs, got "
+                         f"{len(programs)}")
+
+
+def _pyramid_table(header, levels, tables) -> np.ndarray:
+    offset = _PYR_HEADER + _LEVEL_INTS * len(tables)
+    rows = []
+    for lv, t in zip(levels, tables):
+        rows += [offset] + list(lv)
+        offset += len(t)
+    table = np.concatenate([np.array(header + rows, np.int32), *tables])
+    table.setflags(write=False)
+    return table
+
+
+def encode_forward(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
+                   blocks: Sequence[Tuple[int, int]],
+                   compute_dtype: str = "float32") -> PyramidWindow:
+    """Encode the forward kernel: level ``l`` walks ``programs[l]`` at the
+    plane-space ``blocks[l]`` with its own halo (see the table layout in
+    ``csrc/pyramid_window.cu``)."""
+    programs = tuple(programs)
+    blocks = tuple((int(b[0]), int(b[1])) for b in blocks)
+    _check_encode(programs, sched.levels, compute_dtype)
+    if len(blocks) != len(programs):
+        raise ValueError(f"need {len(programs)} level blocks, got "
+                         f"{len(blocks)}")
+    elems = forward_elems(programs, blocks)
+    tables = []
+    for prog, (bh, bw) in zip(programs, blocks):
+        r = prog.halo
+        tables.append(TW.table_rows(prog, TW.layout(prog), bh + 2 * r,
+                                    bw + 2 * r, r, compute_dtype, elems))
+    header = [sched.levels, max(len(t) for t in tables), 0, 0, 0, 0, 0, 0]
+    return PyramidWindow(
+        kind="forward", programs=programs, sched=sched,
+        block=(2 * blocks[0][0], 2 * blocks[0][1]), level_blocks=blocks,
+        compute_dtype=compute_dtype,
+        table=_pyramid_table(header, [(bh, bw, 0) for bh, bw in blocks],
+                             tables),
+        smem_bytes=forward_smem_bytes(programs, blocks), elems=elems)
+
+
+def encode_inverse(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
+                   block: Tuple[int, int],
+                   compute_dtype: str = "float32") -> PyramidWindow:
+    """Encode the inverse kernel for launches at the image-space
+    ``block`` (see the table layout in ``csrc/pyramid_window.cu``)."""
+    programs = tuple(programs)
+    L = sched.levels
+    _check_encode(programs, L, compute_dtype)
     if any(int(e) <= 0 or int(e) % (1 << L) for e in block):
         raise ValueError(f"block {tuple(block)} must be positive multiples "
                          f"of 2^levels = {1 << L}")
-    lays, level_ints, n_slots, slot = _sizes(programs, sched, block)
+    lays, elems, level_ints, n_slots, slot, front, back = _inverse_sizes(
+        programs, sched, block)
     wins = level_windows(sched, block)
-    for prog, lay in zip(programs, lays):
-        kinds = [prog.nodes[i].kind for i in lay.order]
-        # the kernels reuse the LL carry once a level's inputs are loaded,
-        # so every input must come before the first lincomb node, and no
-        # output may be an input node
-        if "input" in kinds[kinds.index("lincomb"):] or any(
-                prog.nodes[o].kind == "input" for o in prog.outputs):
-            raise ValueError("fused-pyramid programs must load every input "
-                             "before computing, and output no input as is")
-    tables = [TW.table_rows(prog, lay, *w.window, w.halo, compute_dtype)
+    tables = [TW.table_rows(prog, lay, *w.window, w.halo, compute_dtype,
+                            elems)
               for prog, lay, w in zip(programs, lays, wins)]
-    header = [L, level_ints, n_slots, slot]
-    offset = _PYR_HEADER + _LEVEL_INTS * L
-    levels = []
-    for w, t in zip(wins, tables):
-        levels += [offset, w.halo, w.shrink, 0]
-        offset += len(t)      # a multiple of 4: terms stay 16-byte aligned
-    table = np.concatenate([np.array(header + levels, np.int32), *tables])
-    table.setflags(write=False)
-    return PyramidWindow(kind=sched.kind, programs=programs, sched=sched,
-                         block=(int(block[0]), int(block[1])),
-                         compute_dtype=compute_dtype, table=table,
-                         smem_bytes=smem_bytes(programs, sched, block))
+    header = [L, level_ints, n_slots, slot, front, back, 0, 0]
+    return PyramidWindow(
+        kind="inverse", programs=programs, sched=sched,
+        block=(int(block[0]), int(block[1])),
+        level_blocks=tuple(w.core for w in wins),
+        compute_dtype=compute_dtype,
+        table=_pyramid_table(header, [(w.halo, w.shrink, 0) for w in wins],
+                             tables),
+        smem_bytes=smem_bytes(programs, sched, block), elems=elems)
 
 
 # ---------------------------------------------------------------------------
@@ -232,9 +301,10 @@ def encode_pyramid(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pyramid_forward_launch.argtypes = [p, p, p] + [i] * 10 + [p]
+    lib.pyramid_forward_launch.argtypes = [p, p, p, i, p, i] + [i] * 9 \
+        + [p, p]
     lib.pyramid_forward_launch.restype = i
-    lib.pyramid_inverse_launch.argtypes = [p, p, i, p] + [i] * 9 + [p]
+    lib.pyramid_inverse_launch.argtypes = [p, p, i, p] + [i] * 10 + [p, p]
     lib.pyramid_inverse_launch.restype = i
 
 
@@ -307,6 +377,19 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def scratch_planes(pw: PyramidWindow, x: torch.Tensor):
+    """The forward kernel's scratch: the LL plane of every level but the
+    last, in the I/O dtype, from one allocation (``torch.empty``)."""
+    nb, h, w = x.shape
+    sizes = [nb * (h >> (l + 1)) * (w >> (l + 1))
+             for l in range(pw.levels - 1)]
+    if not sizes:
+        return []
+    buf = torch.empty(sum(sizes), dtype=x.dtype, device=x.device)
+    return [t.view(nb, h >> (l + 1), w >> (l + 1))
+            for l, t in enumerate(buf.split(sizes))]
+
+
 def pyramid_forward_ref(pw: PyramidWindow, x: torch.Tensor):
     """Plain version of K2: the per-level chain — split, the level's
     program through :func:`~repro_torch.kernels.tap_window.window_ref`,
@@ -353,19 +436,25 @@ def pyramid_forward(pw: PyramidWindow, x: torch.Tensor):
     if not x.is_contiguous():
         raise ValueError("pyramid_forward image must be contiguous")
     nb, h, w = x.shape
-    _grid_ok("pyramid_forward", pw, nb, h, w)
+    tiles = pw.level_tiles((nb, h, w))
+    if max(tiles) >= 2 ** 31:
+        raise ValueError(f"pyramid_forward: {max(tiles)} tiles exceed the "
+                         f"kernel's int32 tile index")
     lib = FORWARD.library()
     outs = [torch.empty(s, dtype=x.dtype, device=dev)
             for s in _subband_shapes(pw, nb, h, w)]
+    scratch = scratch_planes(pw, x)
     table = pw.device_table(dev)
+    info = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         err = lib.pyramid_forward_launch(
-            table.data_ptr(), x.data_ptr(), _pointers(outs), len(outs), nb,
-            h, w, pw.block[0], pw.block[1], pw.smem_bytes,
-            TW.IO_CODES[x.dtype], int(pw.compute_dtype == "bfloat16"),
-            dev.index, _stream(dev))
+            table.data_ptr(), x.data_ptr(), _pointers(outs), len(outs),
+            _pointers(scratch), len(scratch), nb, h, w, max(tiles),
+            pw.smem_bytes, pw.elems, TW.IO_CODES[x.dtype],
+            int(pw.compute_dtype == "bfloat16"), dev.index, _stream(dev),
+            info)
     LIBRARY.check(err, "pyramid_forward")
-    FORWARD.launches += 1
+    FORWARD.launched(info)
     details = tuple(tuple(outs[1 + 3 * l:4 + 3 * l])
                     for l in range(pw.levels))
     return outs[0], details
@@ -393,13 +482,15 @@ def pyramid_inverse(pw: PyramidWindow, ll: torch.Tensor, details
     lib = INVERSE.library()
     out = torch.empty((nb, h, w), dtype=ll.dtype, device=dev)
     table = pw.device_table(dev)
+    info = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         err = lib.pyramid_inverse_launch(
             table.data_ptr(), _pointers(subbands), len(subbands),
             out.data_ptr(), nb, h, w, pw.block[0], pw.block[1],
-            pw.smem_bytes, TW.IO_CODES[ll.dtype],
-            int(pw.compute_dtype == "bfloat16"), dev.index, _stream(dev))
+            pw.smem_bytes, pw.elems, TW.IO_CODES[ll.dtype],
+            int(pw.compute_dtype == "bfloat16"), dev.index, _stream(dev),
+            info)
     LIBRARY.check(err, "pyramid_inverse")
-    INVERSE.launches += 1
+    INVERSE.launched(info)
     return out
 

@@ -7,29 +7,44 @@ fused step group, of a 2-D polyphase scheme).  The CUDA source is
 builds it with ``nvcc`` at first use, launches it through ``ctypes`` and
 keeps its plain version, :func:`tap_window_ref`.
 
-What bounds it on an H100: device-memory bytes.  A launch reads the four
-input planes and writes the four output planes; the arithmetic (a few
-dozen flops per sample even for the fused 9/7 programs) sits far below
-the card's fp32 rate at 3.35 TB/s.  What the design does about that:
+What bounds it on an H100: device-memory bytes in principle.  A launch
+reads the four input planes and writes the four output planes; the
+arithmetic (a few dozen flops per sample even for the fused 9/7
+programs) sits below the card's fp32 rate at 3.35 TB/s.  In practice the
+walk of the program table is what costs: barriers, dependent shared
+loads, latency.  What the design does about it:
 
-* the four ``(bh+2r) x (bw+2r)`` input windows are gathered straight from
-  the unpadded planes with mod-``hp`` / mod-``wp`` indexing, so there is
-  no separate periodic-pad pass and no pad-to-block copy (the Pallas path
-  materializes both), and the ragged edge is masked on the store;
-* every intermediate node of the program lives in shared memory, in a
-  slot reused once its last reader has run (a liveness pass at plan
-  build), so a fused program makes exactly one round trip of the planes
-  through device memory per launch;
-* output nodes nobody reads again are written straight to device memory
-  from registers, taking no shared-memory slot.
+* **waves**: at plan build the nodes are grouped into dependency waves (a
+  node's wave is one more than the highest wave of its sources; inputs
+  are wave 0).  Nodes of one wave do not read each other, so the kernel
+  evaluates them together and puts one barrier after each wave, not
+  after each node;
+* **one flat index per wave**: a thread takes its positions of the wave
+  (a warp 32 x E consecutive ones of the union of the wave's regions, E
+  chosen per table by :func:`choose_elems`) and evaluates every node of
+  the wave there in turn: each term is one table read that serves E
+  independent shared reads,
+  multiplies and adds, with no branch in the term loop (reading each
+  distinct ``(source, shift)`` of a wave once instead took a dispatch per
+  table row and lost on the card: PERF.md);
+* **persistent blocks, staged inputs**: the grid is the resident block
+  count; each block loops over tiles, and the next tile's four input
+  windows are requested through ``cp.async`` as soon as the current
+  tile's walk ends, while the other resident blocks compute (a second
+  input stage, to copy them during the walk, cost a resident block and
+  lost on the card); the guard picks a block that leaves
+  :data:`MIN_RESIDENT` blocks resident;
+* every intermediate node lives in a shared-memory slot, reused once the
+  last wave that reads it has run (liveness at wave granularity); output
+  nodes nobody reads again are written straight to device memory from
+  registers; windows are gathered straight from the unpadded planes with
+  mod-``hp`` / mod-``wp`` indexing, and the ragged edge is masked.
 
-One generic kernel walks an encoded program table (nodes, terms, node
-regions from :func:`~repro_torch.compiler.execute.required_margins`), so
-one build serves every wavelet, scheme and compile level.  Products and
-sums use ``__fmul_rn`` / ``__fadd_rn`` in the same left-fold term order
-and with the same strength reductions as the plain version, so the two
-agree bit for bit in float32; ``compute_dtype="bfloat16"`` rounds every
-product and sum to bfloat16, which float32 emulates exactly.
+One generic kernel walks an encoded table, so one build serves every
+wavelet, scheme and compile level.  Products and sums use ``__fmul_rn`` /
+``__fadd_rn`` in the same left-fold term order as the plain version, so
+the two agree bit for bit in float32; ``compute_dtype="bfloat16"`` rounds
+every product and sum to bfloat16, which float32 emulates exactly.
 """
 from __future__ import annotations
 
@@ -66,14 +81,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: shared memory one block may use on Hopper (sm_90: 227 KB)
 SMEM_LIMIT = 232448
 #: plane-space block target (bh, bw).  The reference's (256, 512) is sized
-#: for a 16 MiB TPU VMEM; here a block's windows live in shared memory:
-#: 11 fp32 slots of a 40 x 72 window (halo 4) take ~127 KB.
+#: for a 16 MiB TPU VMEM; here a block's windows live in shared memory.
 BLOCK_TARGET = (32, 64)
+#: the guard halves the target until this many blocks fit one SM's
+#: shared memory: the walk is latency-bound, and on the card a block that
+#: leaves fewer resident lost to a smaller one (the fused 9/7 level at
+#: (32, 64) against (32, 32): PERF.md)
+MIN_RESIDENT = 3
+#: shared memory of one SM on Hopper, and what the runtime reserves per
+#: resident block
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
 #: the SMEM guard never shrinks a block edge below this
 MIN_BLOCK = 8
 #: the encoder refuses block edges above this (no guard picks one)
 MAX_BLOCK_EDGE = 256
-#: the kernels map a flat region index i to its row with one float
+#: the kernels map a flat window index i to its row with one float
 #: multiply (``row_of`` in csrc/window_common.cuh), exact for every
 #: i < 2^22 at any width.  Both encoders refuse windows past these
 #: bounds: one fp32 slot of MAX_WINDOW_ELEMS positions already fills the
@@ -82,16 +104,18 @@ MAX_BLOCK_EDGE = 256
 #: MAX_WINDOW_ELEMS.
 MAX_WINDOW_ELEMS = SMEM_LIMIT // 4
 MAX_WINDOW_WIDTH = 1024
-
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 IO_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
-# table layout, shared with csrc/tap_window.cu
-_HEADER = 4          # n_nodes, n_terms, n_slots, halo
-_NODE_INTS = 8       # kind, j, dst slot, qm, qn, first term, n terms, mask
-_TERM_INTS = 4       # src offset, op, coefficient bits, unused
-_INPUT, _LINCOMB = 0, 1
-_COPY, _NEG, _MUL = 0, 1, 2
+# table layout, shared with csrc/window_common.cuh
+_HEADER = 12         # see table_rows
+_WAVE_INTS = 4       # first node, nodes, lo, hi
+_NODE_INTS = 4       # first term, terms, slot offset, output mask
+#: the kernel's threads per block, and the positions per thread and pass
+#: its walk is built for (the encoder picks one per table:
+#: :func:`choose_elems`; the back pad covers a pass's overrun past a
+#: wave's last position)
+THREADS, ELEMS_CHOICES = 256, (4, 6, 9)
 
 
 class SmemError(ValueError):
@@ -105,25 +129,41 @@ class SmemError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class _Layout:
-    """Block-independent facts of one program: which nodes run, the
-    region margin of each, its shared-memory slot, its output mask."""
+    """Block-independent facts of one program: which nodes run and in
+    which dependency wave, the region margin of each, its shared-memory
+    slot and its output mask."""
 
-    order: Tuple[int, ...]                  # node ids the kernel walks
+    order: Tuple[int, ...]                  # lincomb node ids, wave order
     margins: Tuple[Optional[Tuple[int, int]], ...]
+    waves: Tuple[int, ...]                  # per node id, -1 = dead
     slots: Tuple[int, ...]                  # per node id, -1 = none
     masks: Tuple[int, ...]                  # per node id, output bits
     n_slots: int
     n_terms: int
 
+    @property
+    def n_waves(self) -> int:
+        """Dependency waves of lincomb nodes (inputs are wave 0)."""
+        return max(self.waves) if self.order else 0
+
+    @property
+    def barriers(self) -> int:
+        """Barriers per tile: one after the inputs, one per wave."""
+        return 1 + self.n_waves
+
+    def wave_nodes(self, w: int) -> Tuple[int, ...]:
+        return tuple(i for i in self.order if self.waves[i] == w)
+
 
 @functools.lru_cache(maxsize=1024)
 def layout(prog: ir.TapProgram, out_margin: Optional[int] = None
            ) -> _Layout:
-    """Liveness pass: the nodes the kernel runs (outputs' ancestors, in
-    program order), each node's region margin with the outputs at
-    ``out_margin`` (default: the program halo, the window kernel's
-    case), and a shared-memory slot for every node a later node reads —
-    reused once its last reader has run.  Outputs nothing reads take no
+    """Wave and liveness pass: the nodes the kernel runs (outputs'
+    ancestors), each node's wave and region margin with the outputs at
+    ``out_margin`` (default: the program halo, the window kernel's case),
+    and a shared-memory slot for every lincomb node a later wave reads,
+    reused once the last wave that reads its holder has run.  Inputs live
+    in the input stage (plane ``j``), outputs nothing reads take no
     slot."""
     r = prog.halo if out_margin is None else int(out_margin)
     req = required_margins(prog, r)
@@ -131,53 +171,92 @@ def layout(prog: ir.TapProgram, out_margin: Optional[int] = None
     masks = [0] * n
     for k, o in enumerate(prog.outputs):
         masks[o] |= 1 << k
-    live = [False] * n
+    if any(prog.nodes[o].kind == "input" for o in prog.outputs):
+        raise ValueError("window programs must not output an input node "
+                         "as is")
+    waves = [-1] * n
     for i, nd in enumerate(prog.nodes):
-        live[i] = (req[i] is not None if nd.kind == "lincomb"
-                   else req[i] is not None or masks[i] != 0)
-    last_use = [-1] * n
+        if nd.kind == "input":
+            waves[i] = 0
+        elif req[i] is not None:
+            waves[i] = 1 + max((waves[t.src] for t in nd.terms), default=0)
+    last = [0] * n                          # last wave that reads a node
     for i, nd in enumerate(prog.nodes):
-        if live[i] and nd.kind == "lincomb":
+        if waves[i] > 0:
             for t in nd.terms:
-                last_use[t.src] = max(last_use[t.src], i)
+                last[t.src] = max(last[t.src], waves[i])
     slots = [-1] * n
     holders: Dict[int, int] = {}            # slot -> node holding it
     n_slots = 0
-    order = []
-    for i in range(n):
-        if not live[i]:
-            continue
-        order.append(i)
+    order: List[int] = []
+    for w in range(1, max(waves) + 1):
         for s, h in list(holders.items()):
-            if last_use[h] < i:
+            if last[h] < w:
                 del holders[s]
-        if last_use[i] > i:
-            s = next(s for s in range(n_slots + 1) if s not in holders)
-            holders[s] = i
-            slots[i] = s
-            n_slots = max(n_slots, s + 1)
+        nodes = [i for i in range(n) if waves[i] == w]
+        for i in nodes:
+            if last[i] > w:
+                s = next(s for s in range(n_slots + 1) if s not in holders)
+                holders[s] = i
+                slots[i] = s
+                n_slots = max(n_slots, s + 1)
+        order += nodes
     n_terms = sum(len(prog.nodes[i].terms) for i in order)
     margins = tuple((0, 0) if prog.nodes[i].kind == "input" else req[i]
                     for i in range(n))
-    return _Layout(order=tuple(order), margins=margins,
+    return _Layout(order=tuple(order), margins=margins, waves=tuple(waves),
                    slots=tuple(slots), masks=tuple(masks), n_slots=n_slots,
                    n_terms=n_terms)
 
 
 def table_ints(lay: _Layout) -> int:
-    return _HEADER + _NODE_INTS * len(lay.order) + _TERM_INTS * lay.n_terms
+    return (_HEADER + _WAVE_INTS * lay.n_waves + _NODE_INTS * len(lay.order)
+            + 2 * lay.n_terms)
+
+
+def pads(halo: int, ww: int, elems: int) -> Tuple[int, int]:
+    """Floats of shared memory before the input stage and after the
+    slots: a position off its node's region reads up to ``halo`` rows and
+    columns outside its source, and a pass runs up to ``32 * (elems - 1)``
+    positions past a wave's last (rounded up to 16 bytes)."""
+    reach = halo * ww + halo
+    front = -(-reach // 4) * 4
+    back = -(-(reach + 32 * (elems - 1)) // 4) * 4
+    return front, back
+
+
+def wave_ranges(lay: _Layout, wh: int, ww: int) -> List[Tuple[int, int]]:
+    """The flat window range [lo, hi) each wave walks: the union of its
+    nodes' regions, positions ``y * ww + x``."""
+    out = []
+    for w in range(1, lay.n_waves + 1):
+        rec = lay.wave_nodes(w)
+        out.append((min(lay.margins[i][1] * ww + lay.margins[i][0]
+                        for i in rec),
+                    max((wh - lay.margins[i][1]) * ww - lay.margins[i][0]
+                        for i in rec)))
+    return out
+
+
+def choose_elems(lay: _Layout, wh: int, ww: int) -> int:
+    """Positions per thread for the walk of ``lay`` over a ``wh x ww``
+    window: the count of :data:`ELEMS_CHOICES` with the fewest position
+    slots per thread over all waves (a pass costs the same however few of
+    its positions lie in the wave), the smaller on a tie."""
+    ranges = wave_ranges(lay, wh, ww)
+    return min(ELEMS_CHOICES, key=lambda e: (sum(
+        -(-(hi - lo) // (THREADS * e)) * e for lo, hi in ranges), e))
 
 
 def walk_terms(prog: ir.TapProgram, lay: _Layout, wh: int, ww: int) -> int:
     """Term evaluations of one walk of ``prog`` over a ``wh x ww`` window:
-    each lincomb node's region times its term count (the kernels' work
-    per block)."""
+    each lincomb node's region times its term count (the useful work per
+    block; the wave walk also evaluates a node off its region, inside the
+    union of its wave's regions, and discards those values)."""
     n = 0
     for i in lay.order:
-        nd = prog.nodes[i]
-        if nd.kind != "input":
-            qm, qn = lay.margins[i]
-            n += (wh - 2 * qn) * (ww - 2 * qm) * len(nd.terms)
+        qm, qn = lay.margins[i]
+        n += (wh - 2 * qn) * (ww - 2 * qm) * len(prog.nodes[i].terms)
     return n
 
 
@@ -191,40 +270,80 @@ def check_window(wh: int, ww: int) -> None:
 
 
 def table_rows(prog: ir.TapProgram, lay: _Layout, wh: int, ww: int,
-               halo: int, compute_dtype: str) -> np.ndarray:
+               halo: int, compute_dtype: str,
+               elems: Optional[int] = None) -> np.ndarray:
     """One program's table (see csrc/window_common.cuh) for a ``wh x ww``
-    window of halo ``halo``: header, node rows, term rows."""
+    window of halo ``halo``, walked with ``elems`` positions per thread
+    (default :func:`choose_elems`):
+
+    * header (12 ints): barriers per tile, waves, nodes, terms, slots,
+      halo, wh, ww, front pad, back pad, positions per thread, 0;
+    * one record per dependency wave (4 ints): first node, nodes, and the
+      flat window range [lo, hi) the wave walks (the union of its nodes'
+      regions, positions ``y * ww + x``);
+    * one record per node, wave by wave (4 ints): first term, terms, the
+      offset of its slot from the first slot (-1 = none), output mask;
+    * the terms (2 ints): the offset from the input stage to the source
+      at the term's shift (plane ``j`` of the stage for an input, the
+      slot otherwise; the slots follow the stage), coefficient bits.
+    """
     check_window(wh, ww)
     cdt = COMPUTE_DTYPES[compute_dtype]
     plane = wh * ww
-    node_rows: List[List[int]] = []
-    term_rows: List[List[int]] = []
-    for i in lay.order:
-        nd = prog.nodes[i]
-        qm, qn = lay.margins[i]
-        kind = _INPUT if nd.kind == "input" else _LINCOMB
-        node_rows.append([kind, nd.j if kind == _INPUT else 0,
-                          lay.slots[i], qm, qn, len(term_rows),
-                          len(nd.terms), lay.masks[i]])
-        for t in nd.terms:
-            src = lay.slots[t.src]
-            assert src >= 0, f"node {i} reads node {t.src}, which has no slot"
-            op = _COPY if t.c == 1.0 else (_NEG if t.c == -1.0 else _MUL)
-            bits = int(np.array(coef(t.c, cdt), np.float32).view(np.int32))
-            term_rows.append([src * plane - t.kn * ww - t.km, op, bits, 0])
-    return np.array([len(node_rows), len(term_rows), lay.n_slots, halo]
-                    + [v for row in node_rows for v in row]
-                    + [v for row in term_rows for v in row], np.int32)
+    elems = choose_elems(lay, wh, ww) if elems is None else int(elems)
+    if elems not in ELEMS_CHOICES:
+        raise ValueError(f"elems {elems} not one of {ELEMS_CHOICES}")
+    front, back = pads(halo, ww, elems)
+    waves: List[int] = []
+    nodes: List[int] = []
+    terms: List[int] = []
+    for w, (lo, hi) in enumerate(wave_ranges(lay, wh, ww), 1):
+        rec = lay.wave_nodes(w)
+        waves += [len(nodes) // _NODE_INTS, len(rec), lo, hi]
+        for i in rec:
+            s = lay.slots[i]
+            nodes += [len(terms) // 2, len(prog.nodes[i].terms),
+                      s * plane if s >= 0 else -1, lay.masks[i]]
+            for t in prog.nodes[i].terms:
+                src = prog.nodes[t.src]
+                if src.kind == "input":
+                    base = src.j * plane
+                else:
+                    assert lay.slots[t.src] >= 0, \
+                        f"node {i} reads node {t.src}, which has no slot"
+                    base = (4 + lay.slots[t.src]) * plane
+                terms += [base - t.kn * ww - t.km,
+                          int(np.array(coef(t.c, cdt), np.float32)
+                              .view(np.int32))]
+    header = [lay.barriers, lay.n_waves, len(lay.order), lay.n_terms,
+              lay.n_slots, halo, wh, ww, front, back, elems, 0]
+    return np.array(header + waves + nodes + terms, np.int32)
 
 
-def smem_bytes(prog: ir.TapProgram, block: Tuple[int, int]) -> int:
-    """Dynamic shared memory of one launch: the program table plus one
-    fp32 window per slot."""
-    lay = layout(prog)
+def smem_floats(lay: _Layout, wh: int, ww: int, halo: int,
+                elems: Optional[int] = None) -> int:
+    """Shared memory of one walk in 4-byte words, as the kernels lay it
+    out: the table (rounded up to 16 bytes), the front pad, the input
+    stage of four windows, the slots, the back pad (for ``elems``
+    positions per thread, default :func:`choose_elems`)."""
+    elems = choose_elems(lay, wh, ww) if elems is None else elems
+    front, back = pads(halo, ww, elems)
+    table = -(-table_ints(lay) // 4) * 4
+    return table + front + (4 + lay.n_slots) * wh * ww + back
+
+
+def smem_bytes(prog: ir.TapProgram, block: Tuple[int, int],
+               elems: Optional[int] = None) -> int:
+    """Dynamic shared memory of one launch at ``block``."""
     r = prog.halo
-    table = (table_ints(lay) + 3) // 4 * 4
-    return 4 * (table + lay.n_slots * (block[0] + 2 * r)
-                * (block[1] + 2 * r))
+    return 4 * smem_floats(layout(prog), block[0] + 2 * r,
+                           block[1] + 2 * r, r, elems)
+
+
+def resident_blocks(smem: int) -> int:
+    """Blocks of ``smem`` bytes of dynamic shared memory that fit on one
+    SM at once (shared memory only)."""
+    return min(SM_SMEM // (smem + BLOCK_RESERVED), 2048 // THREADS)
 
 
 def fit_block(programs: Sequence[ir.TapProgram], hp: int, wp: int,
@@ -232,25 +351,30 @@ def fit_block(programs: Sequence[ir.TapProgram], hp: int, wp: int,
               limit: int = SMEM_LIMIT) -> Tuple[int, int]:
     """SMEM guard: the largest block (from ``target``, halving the longer
     edge) at which every program's launch fits in ``limit`` bytes of
-    shared memory.  Raises :class:`SmemError` when even the smallest
-    block does not fit."""
+    shared memory and :data:`MIN_RESIDENT` blocks fit one SM (or, where
+    none does, the smallest block that fits ``limit``).  Raises
+    :class:`SmemError` when even the smallest block does not fit."""
     t = (int(target[0]), int(target[1]))
     while True:
         block = (_pick_block(hp, t[0])[0], _pick_block(wp, t[1])[0])
         need = max(smem_bytes(p, block) for p in programs)
-        if need <= limit:
-            return block
         if t[0] >= t[1] and t[0] > MIN_BLOCK:
-            t = (max(t[0] // 2, MIN_BLOCK), t[1])
+            smaller = (max(t[0] // 2, MIN_BLOCK), t[1])
         elif t[1] > MIN_BLOCK:
-            t = (t[0], max(t[1] // 2, MIN_BLOCK))
+            smaller = (t[0], max(t[1] // 2, MIN_BLOCK))
         elif t[0] > MIN_BLOCK:
-            t = (max(t[0] // 2, MIN_BLOCK), t[1])
+            smaller = (max(t[0] // 2, MIN_BLOCK), t[1])
         else:
+            smaller = None
+        if need <= limit and (resident_blocks(need) >= MIN_RESIDENT
+                              or smaller is None):
+            return block
+        if smaller is None:
             raise SmemError(
                 f"tap program window at block {block} needs {need} B of "
                 f"shared memory > limit {limit} B even at the minimum "
                 f"block")
+        t = smaller
 
 
 @dataclasses.dataclass(eq=False)
@@ -265,8 +389,6 @@ class WindowProgram:
     block: Tuple[int, int]
     compute_dtype: str
     halo: int
-    n_nodes: int
-    n_slots: int
     table: np.ndarray
     _tables: Dict[torch.device, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
@@ -279,14 +401,31 @@ class WindowProgram:
 
     @property
     def smem_bytes(self) -> int:
-        return smem_bytes(self.program, self.block)
+        return smem_bytes(self.program, self.block, self.elems)
+
+    @property
+    def barriers(self) -> int:
+        """Barriers per tile (table header)."""
+        return int(self.table[0])
+
+    @property
+    def terms(self) -> int:
+        """Terms per position, one shared read each (table header)."""
+        return int(self.table[3])
+
+    @property
+    def elems(self) -> int:
+        """Positions per thread and pass of the walk (table header)."""
+        return int(self.table[10])
+
+    def tiles(self, shape: Tuple[int, int, int]) -> int:
+        nb, hp, wp = shape
+        return nb * -(-hp // self.block[0]) * -(-wp // self.block[1])
 
     def term_evaluations(self, shape: Tuple[int, int, int]) -> int:
         """Term evaluations of one launch over ``(B, hp, wp)`` planes."""
-        nb, hp, wp = shape
-        blocks = nb * -(-hp // self.block[0]) * -(-wp // self.block[1])
-        return blocks * walk_terms(self.program, layout(self.program),
-                                   *self.window)
+        return self.tiles(shape) * walk_terms(
+            self.program, layout(self.program), *self.window)
 
     def device_table(self, device: torch.device) -> torch.Tensor:
         with self._lock:
@@ -313,9 +452,7 @@ def encode(prog: ir.TapProgram, block: Tuple[int, int],
                        compute_dtype)
     table.setflags(write=False)
     return WindowProgram(program=prog, block=(int(block[0]), int(block[1])),
-                         compute_dtype=compute_dtype, halo=r,
-                         n_nodes=len(lay.order), n_slots=lay.n_slots,
-                         table=table)
+                         compute_dtype=compute_dtype, halo=r, table=table)
 
 
 # ---------------------------------------------------------------------------
@@ -421,14 +558,22 @@ class Kernel:
         self.name = name
         self.lib = library
         self.launches = 0
+        #: (grid, resident blocks per SM) of the last launch
+        self.last_grid: Tuple[int, int] = (0, 0)
 
     def library(self):
         return self.lib.library()
 
+    def launched(self, info) -> None:
+        """Count one launch; ``info`` is the (grid, blocks per SM) pair
+        the launch function wrote."""
+        self.launches += 1
+        self.last_grid = (int(info[0]), int(info[1]))
+
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tap_window_launch.argtypes = [p, i] + [p] * 8 + [i] * 10 + [p]
+    lib.tap_window_launch.argtypes = [p, i] + [p] * 8 + [i] * 11 + [p, p]
     lib.tap_window_launch.restype = i
 
 
@@ -501,22 +646,21 @@ def tap_window(win: WindowProgram, planes: Sequence[torch.Tensor]
         if not p.is_contiguous():
             raise ValueError("tap_window planes must be contiguous")
     nb, hp, wp = planes[0].shape
-    bh, bw = win.block
-    grid_y, grid_x = -(-hp // bh), -(-wp // bw)
-    if nb > 65535 or grid_y > 65535:
-        raise ValueError(f"tap_window grid ({grid_x}, {grid_y}, {nb}) "
-                         f"exceeds the launch limits")
+    if win.tiles((nb, hp, wp)) >= 2 ** 31:
+        raise ValueError(f"tap_window: {win.tiles((nb, hp, wp))} tiles "
+                         f"exceed the kernel's int32 tile index")
     lib = KERNEL.library()
     outs = [torch.empty_like(p) for p in planes]
     table = win.device_table(dev)
+    info = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tap_window_launch(
             table.data_ptr(), int(table.numel()),
             *[p.data_ptr() for p in planes], *[o.data_ptr() for o in outs],
-            nb, hp, wp, bh, bw, win.halo, win.n_slots,
+            nb, hp, wp, *win.block, win.halo, win.smem_bytes, win.elems,
             IO_CODES[planes[0].dtype],
-            int(win.compute_dtype == "bfloat16"), dev.index, stream)
+            int(win.compute_dtype == "bfloat16"), dev.index, stream, info)
     LIBRARY.check(err, "tap_window")
-    KERNEL.launches += 1
+    KERNEL.launched(info)
     return tuple(outs)

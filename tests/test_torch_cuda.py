@@ -101,6 +101,28 @@ def test_dwt2_counts_launches_and_matches_torch_backend(cuda_device, scheme,
     torch.testing.assert_close(rec, x, **ROUNDTRIP_TOL)
 
 
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 24, 509)])
+def test_persistent_grid_equals_plain_version(cuda_device, shape):
+    """The persistent grid (at most the resident blocks, each looping
+    over tiles) at ragged shapes and at a block small enough that every
+    block walks several tiles."""
+    planes = _planes(shape, cuda_device, seed=5)
+    for scheme, fuse in (("ns-polyconv", "scheme"), ("ns-polyconv", "none"),
+                         ("sep-lifting", "none"), ("dd137", "scheme")):
+        wavelet = "dd137" if scheme == "dd137" else "cdf97"
+        scheme = "ns-conv" if scheme == "dd137" else scheme
+        for prog in C.compile_scheme_programs(wavelet, scheme, False, False,
+                                              "full", fuse):
+            for block in (TW.fit_block((prog,), *shape[1:]), (8, 8)):
+                win = TW.encode(prog, block)
+                got = TW.tap_window(win, planes)
+                grid, per_sm = TW.KERNEL.last_grid
+                assert 1 <= grid <= win.tiles(shape) and per_sm >= 1
+                want = TW.tap_window_ref(win, planes)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (scheme, fuse, block)
+
+
 def test_wrapper_rejects_non_contiguous_planes(cuda_device):
     prog = C.compile_scheme_programs("cdf53", "ns-conv", False, False,
                                      "full", "none")[0]
@@ -188,3 +210,25 @@ def test_pyramid_is_one_launch_and_equals_levels(cuda_device, scheme):
     assert torch.equal(rec, R.idwt2(pyr, fuse="levels", scheme=scheme,
                                     device=cuda_device))
     torch.testing.assert_close(rec, x, **ROUNDTRIP_TOL)
+
+
+def test_cooperative_pyramid_on_a_ragged_image(cuda_device):
+    """K2's cooperative launch (every block resident, a grid-wide barrier
+    between levels) at 3 levels on 2 x 256 x 4072, whose level planes are
+    ragged against the tiles; its grid fits the card at once, and K2 and
+    K3 equal their plain versions bit for bit."""
+    from repro_torch.kernels import pyramid_window as PW
+    fwd, inv = _pyramid_kernels("cdf97", "ns-polyconv", 3, (2, 256, 4072))
+    x = torch.randn((2, 256, 4072), generator=torch.Generator()
+                    .manual_seed(4)).to(cuda_device)
+    ll, det = PW.pyramid_forward(fwd, x)
+    grid, per_sm = PW.FORWARD.last_grid
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert 1 <= grid <= per_sm * sms
+    assert grid <= max(fwd.level_tiles(tuple(x.shape)))
+    rll, rdet = PW.pyramid_forward_ref(fwd, x)
+    for a, b in zip([ll] + [d for t in det for d in t],
+                    [rll] + [d for t in rdet for d in t]):
+        assert torch.equal(a, b)
+    assert torch.equal(PW.pyramid_inverse(inv, ll, det),
+                       PW.pyramid_inverse_ref(inv, ll, det))

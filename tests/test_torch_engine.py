@@ -8,6 +8,8 @@ pallas) and its filter-bank oracle ``dwt2_ref``; plus the plan cache,
 the launch model, the geometry error text, the device default and the
 reference features that raise until they are ported.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -249,6 +251,28 @@ def test_default_device_needs_cuda(monkeypatch):
         R.idwt2(R.dwt2(x, device="cpu"))
     with pytest.raises(RuntimeError, match=r'device="cpu"'):
         TE.get_plan(shape=(16, 16))
+
+
+def test_plan_key_without_device_does_not_plan_for_the_cpu(monkeypatch):
+    """``PlanKey.device`` defaults to "cuda", like ``get_plan`` and
+    ``dwt2``: with no card, building (directly or through a cache) raises
+    and names device="cpu"; with one, "cuda" and "cuda:<n>" are one key."""
+    key = TE.PlanKey(wavelet="cdf97", scheme="ns-polyconv", levels=1,
+                     shape=(16, 16), dtype="float32", backend="cuda",
+                     optimize=False, fuse="none", boundary="periodic")
+    assert key.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r'device="cpu"'):
+        TE.build_plan(key)
+    with pytest.raises(RuntimeError, match=r'device="cpu"'):
+        TE.PlanCache().get(key)
+    cpu = dataclasses.replace(key, device="cpu")
+    assert TE.build_plan(cpu).key == cpu
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert TE.canonical_key(key) == dataclasses.replace(key,
+                                                        device="cuda:0")
+    assert TE.canonical_key(TE.canonical_key(key)) == TE.canonical_key(key)
 
 
 def test_plan_rejects_input_on_another_device():

@@ -35,6 +35,7 @@ from repro.kernels import polyphase as JPP
 
 import repro_torch as R
 from repro_torch import compiler as TC
+from test_torch_window import walk_table
 from repro_torch import engine as TE
 from repro_torch.engine import plan as TPLAN
 from repro_torch.engine.plan import scheme_steps as t_scheme_steps
@@ -73,7 +74,7 @@ def _kernels(wavelet, scheme, levels, tap_opt="full"):
     key = TE.PlanKey(wavelet=wavelet, scheme=scheme, levels=levels,
                      shape=(2048, 2048), dtype="float32", backend="cuda",
                      optimize=False, fuse="pyramid", boundary="periodic",
-                     tap_opt=tap_opt)
+                     tap_opt=tap_opt, device="cpu")
     spec, _ = TPLAN._resolve_pyramid(key, 2048, 2048)
     return spec
 
@@ -119,7 +120,7 @@ def test_plan_schedules_equal_reference_plan(scheme, levels, monkeypatch):
         key = TE.PlanKey(wavelet="cdf97", scheme=scheme, levels=levels,
                          shape=(2, 64, 96), dtype="float32", backend="cuda",
                          optimize=False, fuse="pyramid",
-                         boundary="periodic", tap_opt=tap_opt)
+                         boundary="periodic", tap_opt=tap_opt, device="cpu")
         jkey = JE.PlanKey(wavelet="cdf97", scheme=scheme, levels=levels,
                           shape=(2, 64, 96), dtype="float32",
                           backend="pallas", optimize=False, fuse="pyramid",
@@ -127,12 +128,12 @@ def test_plan_schedules_equal_reference_plan(scheme, levels, monkeypatch):
         tspec, _ = TPLAN._resolve_pyramid(key, 64, 96)
         jspec, _ = JE.plan._resolve_pyramid(jkey, 64, 96, TW.BLOCK_TARGET)
         if tspec is None:     # past the row bounds even at the floor
-            assert not PW.windows_fit(jspec.fwd_sched, jspec.block)
+            assert not PW.windows_fit(jspec.inv_sched, jspec.block)
             continue
         for a, b in ((tspec.fwd_sched, jspec.fwd_sched),
                      (tspec.inv_sched, jspec.inv_sched)):
             assert dataclasses.astuple(a) == dataclasses.astuple(b)
-        if PW.windows_fit(jspec.fwd_sched, jspec.block):
+        if PW.windows_fit(jspec.inv_sched, jspec.block):
             assert tspec.block == jspec.block
             assert tspec.covered_shape == jspec.padded_shape
 
@@ -249,8 +250,12 @@ def test_cuda_pyramid_plan_is_one_launch():
     assert plan.pyramid is not None and plan.fallback is None
     assert plan.launches == 1
     spec = plan.pyramid
-    # the main path: (32, 64) plane target, halved once to fit 227 KB
-    assert spec.block == (32, 64) and spec.target == (16, 32)
+    # the forward kernel walks each level at the block fuse="levels" picks
+    assert spec.fwd_kernel.level_blocks == tuple(
+        ls.block for ls in plan.level_specs) == ((32, 32),) * 3
+    # the inverse kernel keeps the (32, 64) plane target: image block
+    # (64, 128), windows carrying the compound margin
+    assert spec.block == (64, 128) and spec.target == (32, 64)
     assert spec.fwd_sched.margins == (32, 12, 4, 0)
     assert spec.inv_sched.margins == (0, 2, 4, 4)
     assert spec.smem_bytes <= TW.SMEM_LIMIT
@@ -260,6 +265,22 @@ def test_cuda_pyramid_plan_is_one_launch():
     assert not caps["torch"]["pyramid_kernel"]
 
 
+def test_forward_pyramid_does_the_work_of_fuse_levels():
+    """The forward kernel's term evaluations are those of the per-level
+    path's window kernel launches, exactly (the main path: 1.10e9 at
+    8 x 2048 x 2048, against 4.32e9 for a level-0 window carrying the
+    compound margin)."""
+    shape = (8, 2048, 2048)
+    plan = TE.get_plan(shape=shape, levels=3, scheme="ns-polyconv",
+                       fuse="levels", backend="cuda", device="cpu",
+                       cache=TE.PlanCache())
+    levels = sum(win.term_evaluations((8,) + ls.plane_shape)
+                 for ls in plan.level_specs for win in ls.fwd_windows)
+    spec = _kernels("cdf97", "ns-polyconv", 3)
+    assert spec.fwd_kernel.term_evaluations(shape) == levels == 1098080256
+    assert spec.fwd_kernel.level_tiles(shape) == (8192, 2048, 512)
+
+
 def test_smem_guard_falls_back_to_levels(monkeypatch):
     """A tiny budget: the plan demotes to fuse="levels", says why,
     counts it, and computes exactly what fuse="levels" computes."""
@@ -267,7 +288,8 @@ def test_smem_guard_falls_back_to_levels(monkeypatch):
     before = dict(TE.PYRAMID_COUNTERS)
     key = TE.PlanKey(wavelet="cdf97", scheme="ns-polyconv", levels=2,
                      shape=(2, 32, 48), dtype="float32", backend="cuda",
-                     optimize=False, fuse="pyramid", boundary="periodic")
+                     optimize=False, fuse="pyramid", boundary="periodic",
+                     device="cpu")
     plan = TE.build_plan(key)
     assert plan.pyramid is None
     assert "executing as fuse='levels'" in plan.fallback
@@ -284,14 +306,43 @@ def test_smem_guard_falls_back_to_levels(monkeypatch):
 
 
 def test_deep_separable_pyramid_falls_back_at_default_budget():
-    """L=5 cdf97 sep-lifting: the forward margin is 288 image pixels, so
-    even a 32x32 block's window overflows shared memory."""
+    """L=7 cdf97 sep-lifting: the inverse kernel's windows still carry the
+    compound margin, and even at the 128-pixel block floor they overflow
+    shared memory: the plan falls back to fuse="levels" and says which
+    kernel did not fit."""
+    before = TE.PYRAMID_COUNTERS["smem_fallbacks"]
+    plan = TE.get_plan(shape=(1, 256, 256), levels=7, scheme="sep-lifting",
+                       fuse="pyramid", backend="cuda", device="cpu",
+                       cache=TE.PlanCache())
+    assert plan.pyramid is None and plan.launches == 7
+    assert plan.fallback.startswith("inverse pyramid window")
+    assert TE.PYRAMID_COUNTERS["smem_fallbacks"] == before + 1
+
+
+def test_five_level_separable_pyramid_now_fits():
+    """L=5 cdf97 sep-lifting, which fell back while the forward kernel's
+    level-0 window carried the 288-pixel compound margin: the forward
+    kernel now walks each level with its own halo, and both kernels
+    fit."""
     before = TE.PYRAMID_COUNTERS["smem_fallbacks"]
     plan = TE.get_plan(shape=(1, 256, 256), levels=5, scheme="sep-lifting",
                        fuse="pyramid", backend="cuda", device="cpu",
                        cache=TE.PlanCache())
-    assert plan.pyramid is None and plan.launches == 5
-    assert TE.PYRAMID_COUNTERS["smem_fallbacks"] == before + 1
+    assert plan.pyramid is not None and plan.launches == 1
+    assert plan.pyramid.fwd_sched.margins[0] == 288
+    assert plan.pyramid.smem_bytes <= TW.SMEM_LIMIT
+    assert TE.PYRAMID_COUNTERS["smem_fallbacks"] == before
+
+
+def test_forward_guard_names_the_forward_kernel(monkeypatch):
+    """A budget below one level's window: the forward kernel is the one
+    that does not fit, and the fallback says so."""
+    monkeypatch.setenv(TPLAN.PYRAMID_SMEM_LIMIT_ENV, "4096")
+    plan = TE.get_plan(shape=(1, 256, 256), levels=2, scheme="ns-polyconv",
+                       fuse="pyramid", backend="cuda", device="cpu",
+                       cache=TE.PlanCache())
+    assert plan.pyramid is None
+    assert plan.fallback.startswith("forward pyramid")
 
 
 def test_pyramid_counter_counts_executions():
@@ -304,29 +355,47 @@ def test_pyramid_counter_counts_executions():
 
 @pytest.mark.parametrize("levels", (1, 2, 3, 4))
 def test_smem_bytes_is_what_the_kernel_lays_out(levels):
-    """The guard's size: the largest level table, n_slots slots of the
-    largest level window and the LL carry, in 4-byte words."""
+    """The guard's sizes.  Forward: the largest window kernel footprint of
+    its levels, each from its own table header.  Inverse: the largest
+    level table, the front pad, one input stage and n_slots slots of the
+    largest level window, the back pad and the LL carry, from the pyramid
+    header."""
     spec = _kernels("cdf53", "ns-polyconv", levels)
-    for pw in (spec.fwd_kernel, spec.inv_kernel):
-        L, level_ints, n_slots, slot = (int(v) for v in pw.table[:4])
-        assert L == levels
-        wins = PW.level_windows(pw.sched, pw.block)
-        assert slot == max(a * b for a, b in (w.window for w in wins))
-        carry = PW.carry_floats(pw.sched, pw.block)
-        assert pw.smem_bytes == 4 * ((level_ints + 3) // 4 * 4
-                                     + n_slots * slot + carry)
-        if pw.kind == "forward" and levels > 1:
-            assert carry == max(a * b for a, b in
-                                (w.out_region for w in wins[:-1]))
+    fwd, inv = spec.fwd_kernel, spec.inv_kernel
+    assert int(fwd.table[0]) == int(inv.table[0]) == levels
+    need = []
+    for (tab, _, _), (bh, bw) in zip(_levels_of(fwd), fwd.level_blocks):
+        n_slots, halo, wh, ww, front, back = (int(v) for v in tab[4:10])
+        assert (wh, ww) == (bh + 2 * halo, bw + 2 * halo)
+        need.append(4 * (-(-len(tab) // 4) * 4 + front
+                         + (4 + n_slots) * wh * ww + back))
+    assert fwd.smem_bytes == max(need)
+    L, level_ints, n_slots, slot, front, back = (int(v)
+                                                 for v in inv.table[:6])
+    wins = PW.level_windows(inv.sched, inv.block)
+    assert slot == max(a * b for a, b in (w.window for w in wins))
+    assert level_ints == max(len(t) for t, _, _ in _levels_of(inv))
+    carry = PW.carry_floats(inv.sched, inv.block)
+    assert inv.smem_bytes == 4 * ((level_ints + 3) // 4 * 4 + front
+                                  + (4 + n_slots) * slot + back + carry)
+    if levels > 1:
+        assert carry == max(4 * a * b for a, b in
+                            (w.out_region for w in wins[1:]))
 
 
 def test_hbm_model_of_the_main_path():
+    """Forward: every level's four windows with their halo overlap, every
+    output (intermediate LL included) written once; inverse: the
+    compound-margin windows of its blocks, the image written once."""
     spec = _kernels("cdf97", "ns-polyconv", 3)
-    fwd = TPP.pyramid_hbm_bytes(spec.fwd_sched, (2048, 2048), 4, (32, 64))
-    inv = TPP.pyramid_hbm_bytes(spec.inv_sched, (2048, 2048), 4, (32, 64))
+    fwd = TPP.pyramid_hbm_bytes(spec.fwd_sched, (2048, 2048), 4,
+                                spec.fwd_kernel.level_blocks,
+                                halos=(2, 2, 2))
+    inv = TPP.pyramid_hbm_bytes(spec.inv_sched, (2048, 2048), 4, (64, 128))
     assert fwd.unique == inv.unique == 2 * 2048 * 2048 * 4
-    blocks = 64 * 32
-    assert fwd.modelled == (blocks * 96 * 128 + 2048 * 2048) * 4
+    reads = sum(4 * ((1024 >> l) // 32) ** 2 * 36 * 36 for l in range(3))
+    writes = sum(4 * (1024 >> l) ** 2 for l in range(3))
+    assert fwd.modelled == (reads + writes) * 4
     assert inv.modelled > inv.unique and fwd.modelled > inv.modelled
 
 
@@ -347,112 +416,64 @@ _ROUND_IO = {torch.float32: lambda a: a,
              torch.bfloat16: _bf16}
 
 
-def _walk(tab, nb, wh, ww, load, sink, rnd):
-    """One window table over a (nb, wh, ww) window, as
-    ``window::walk``: input nodes fill slots from ``load(j)``, lincomb
-    nodes accumulate their region from slots (NaN until written), and
-    output nodes hand ``(mask, ys, xs, values)`` to ``sink``."""
-    n_nodes, n_terms = int(tab[0]), int(tab[1])
-    n_slots = int(tab[2])
-    nodes = tab[4:4 + 8 * n_nodes].reshape(-1, 8)
-    terms = tab[4 + 8 * n_nodes:4 + 8 * n_nodes + 4 * n_terms].reshape(-1, 4)
-    plane = wh * ww
-    slots = np.full((nb, max(n_slots, 1) * plane), np.nan, np.float32)
-    for kind, j, dst, qm, qn, t0, nt, mask in nodes:
-        if kind == 0:
-            ys, xs = np.arange(wh), np.arange(ww)
-            acc = rnd(load(j).reshape(nb, -1))
-        else:
-            ys, xs = np.arange(qn, wh - qn), np.arange(qm, ww - qm)
-            pos = (ys[:, None] * ww + xs[None, :]).ravel()
-            acc = np.zeros((nb, pos.size), np.float32)
-            for t, (off, op, bits, _) in enumerate(terms[t0:t0 + nt]):
-                src = (pos + off) // plane
-                assert (src == src[0]).all() and src[0] != dst
-                s = slots[:, pos + off]
-                assert not np.isnan(s).any(), "read before write"
-                c = np.array(bits, np.int32).view(np.float32)
-                v = s if op == 0 else (-s if op == 1 else rnd(s * c))
-                acc = v if t == 0 else rnd(acc + v)
-        pos = (ys[:, None] * ww + xs[None, :]).ravel()
-        if dst >= 0:
-            slots[:, dst * plane + pos] = acc
-        if mask:
-            sink(mask, ys, xs, acc.reshape(nb, len(ys), len(xs)))
-
-
 def _levels_of(pw):
+    """(table, a, b) per level: the level's window table and the two
+    level ints after its offset (forward: bh, bw; inverse: halo, shrink)."""
     L = int(pw.table[0])
     out = []
     for l in range(L):
-        off, r, s, _ = (int(v) for v in pw.table[4 + 4 * l:8 + 4 * l])
-        n_nodes, n_terms = int(pw.table[off]), int(pw.table[off + 1])
-        tab = pw.table[off:off + 4 + 8 * n_nodes + 4 * n_terms]
-        assert int(tab[3]) == r
-        out.append((tab, r, s))
+        row = PW._PYR_HEADER + PW._LEVEL_INTS * l
+        off, a, b, _ = (int(v) for v in pw.table[row:row + 4])
+        n_waves, n_nodes, n_terms = (int(v) for v in
+                                     pw.table[off + 1:off + 4])
+        n = (TW._HEADER + TW._WAVE_INTS * n_waves + TW._NODE_INTS * n_nodes
+             + 2 * n_terms)
+        out.append((pw.table[off:off + n], a, b))
     return out
 
 
-def _store_core(out, gy0, gx0, ys, xs, vals, r, core, dims, rio):
-    keep_y = (ys >= r) & (ys < r + core[0])
-    keep_x = (xs >= r) & (xs < r + core[1])
-    gy = gy0 + ys[keep_y] - r
-    gx = gx0 + xs[keep_x] - r
-    my, mx = gy < dims[0], gx < dims[1]
-    block = vals[:, keep_y][:, :, keep_x][:, my][:, :, mx]
-    out[:, gy[my][:, None], gx[mx][None, :]] = rio(block)
-
-
 def emulate_forward(pw, x, io=torch.float32):
-    """NumPy walk of K2 over every block: ``x`` (B, H, W) float32 holding
-    values of the I/O dtype ``io``; returns [LL, HL_0, LH_0, HH_0, ...]
-    in pyramid_out_levels order."""
+    """NumPy walk of K2: level by level, every tile of the level's plane
+    grid gathers its four polyphase windows from the level's image (the
+    input, then the LL scratch of the level before), mod the image dims,
+    walks the level table (:func:`walk_table`) and stores the core: HL,
+    LH, HH to the outputs, LL to the next level's image (rounded through
+    the I/O dtype, as the scratch stores it).  ``x`` (B, H, W) float32
+    holds values of the I/O dtype ``io``; returns [LL, HL_0, LH_0, HH_0,
+    ...] in pyramid_out_levels order."""
     rnd = _bf16 if pw.compute_dtype == "bfloat16" else (lambda a: a)
     rio = _ROUND_IO[io]
     nb, h, w = x.shape
-    bh, bw = pw.block
     levels = _levels_of(pw)
     L = len(levels)
     outs = [np.full((nb, h >> (l + 1), w >> (l + 1)), np.nan, np.float32)
             for l in TPP.pyramid_out_levels(L)]
-    for by, bx in itertools.product(range(-(-h // bh)), range(-(-w // bw))):
-        carry = None
-        for l, (tab, r, s) in enumerate(levels):
-            core = (bh >> (l + 1), bw >> (l + 1))
-            wh, ww = core[0] + 2 * r, core[1] + 2 * r
-            if l == 0:
-                rows = (by * bh - 2 * r + 2 * np.arange(wh)) % h
-                cols = (bx * bw - 2 * r + 2 * np.arange(ww)) % w
-                assert (rows % 2 == 0).all() and (cols % 2 == 0).all()
+    img = x
+    for l, (tab, bh, bw) in enumerate(levels):
+        r, wh, ww = (int(v) for v in tab[5:8])
+        assert (wh, ww) == (bh + 2 * r, bw + 2 * r)
+        H, W = h >> l, w >> l
+        hp, wp = H // 2, W // 2
+        last = l + 1 == L
+        ll = outs[0] if last else np.full((nb, hp, wp), np.nan, np.float32)
+        dst = [ll] + outs[1 + 3 * l:4 + 3 * l]
+        for y0, x0 in itertools.product(range(0, hp, bh), range(0, wp, bw)):
+            rows = (2 * (y0 - r + np.arange(wh))) % H
+            cols = (2 * (x0 - r + np.arange(ww))) % W
+            inputs = [img[:, rows + (j >> 1)][:, :, cols + (j & 1)]
+                      for j in range(4)]
 
-                def load(j, rows=rows, cols=cols):
-                    return x[:, rows + (j >> 1)][:, :, cols + (j & 1)]
-            else:
-                assert carry.shape == (nb, 2 * wh, 2 * ww)
-                assert not np.isnan(carry).any()
-
-                def load(j, c=carry):
-                    return c[:, (j >> 1)::2, (j & 1)::2]
-            last = l + 1 == L
-            new = None if last else np.full(
-                (nb, wh - 2 * s, ww - 2 * s), np.nan, np.float32)
-
-            def sink(mask, ys, xs, vals, l=l, r=r, s=s, core=core, wh=wh,
-                     ww=ww, new=new, last=last):
-                if not last and mask & 1:
-                    ky = (ys >= s) & (ys < wh - s)
-                    kx = (xs >= s) & (xs < ww - s)
-                    new[:, (ys[ky] - s)[:, None], (xs[kx] - s)[None, :]] = \
-                        rnd(rio(vals[:, ky][:, :, kx]))
-                    mask &= ~1
-                dims = (h >> (l + 1), w >> (l + 1))
+            def sink(mask, q, vals, y0=y0, x0=x0):
+                y, xx = q // ww, q % ww
+                gy, gx = y0 + y - r, x0 + xx - r
+                keep = ((y >= r) & (y < r + bh) & (xx >= r) & (xx < r + bw)
+                        & (gy < hp) & (gx < wp))
                 for k in range(4):
                     if mask >> k & 1:
-                        o = outs[0] if k == 0 else outs[1 + 3 * l + k - 1]
-                        _store_core(o, by * core[0], bx * core[1], ys, xs,
-                                    vals, r, core, dims, rio)
-            _walk(tab, nb, wh, ww, load, sink, rnd)
-            carry = new
+                        dst[k][:, gy[keep], gx[keep]] = rio(vals[:, keep])
+            walk_table(tab, nb, inputs, sink, rnd)
+        assert not np.isnan(ll).any()
+        img = ll
     return outs
 
 
@@ -471,34 +492,33 @@ def emulate_inverse(pw, subbands, io=torch.float32):
         carry = None
         for l in range(L - 1, -1, -1):
             tab, r, s = levels[l]
+            assert int(tab[5]) == r
             core = (bh >> (l + 1), bw >> (l + 1))
             wh, ww = core[0] + 2 * r, core[1] + 2 * r
             hs, ws = h >> (l + 1), w >> (l + 1)
             rows = (by * core[0] - r + np.arange(wh)) % hs
             cols = (bx * core[1] - r + np.arange(ww)) % ws
-            planes = [subbands[0]] + list(subbands[1 + 3 * l:4 + 3 * l])
+            ll = subbands[0] if carry is None else None
+            inputs = [p[:, rows][:, :, cols] for p in
+                      [ll] + list(subbands[1 + 3 * l:4 + 3 * l]) if
+                      p is not None]
             if carry is not None:
                 assert carry.shape == (nb, wh, ww)
                 assert not np.isnan(carry).any()
-
-            def load(j, rows=rows, cols=cols, planes=planes, c=carry):
-                if j == 0 and c is not None:
-                    return c
-                return planes[j][:, rows][:, :, cols]
+                inputs.insert(0, carry)
             new = np.full((nb, 2 * (wh - 2 * s), 2 * (ww - 2 * s)), np.nan,
                           np.float32)
 
-            def sink(mask, ys, xs, vals, s=s, wh=wh, ww=ww, new=new, l=l):
-                ky = (ys >= s) & (ys < wh - s)
-                kx = (xs >= s) & (xs < ww - s)
-                iy, ix = 2 * (ys[ky] - s), 2 * (xs[kx] - s)
-                v = vals[:, ky][:, :, kx]
+            def sink(mask, q, vals, s=s, wh=wh, ww=ww, new=new, l=l):
+                y, x = q // ww, q % ww
+                keep = (y >= s) & (y < wh - s) & (x >= s) & (x < ww - s)
+                iy, ix = 2 * (y[keep] - s), 2 * (x[keep] - s)
+                v = vals[:, keep]
                 for k in range(4):
                     if mask >> k & 1:
-                        new[:, (iy + (k >> 1))[:, None],
-                            (ix + (k & 1))[None, :]] = \
+                        new[:, iy + (k >> 1), ix + (k & 1)] = \
                             rnd(rio(v)) if l > 0 else v
-            _walk(tab, nb, wh, ww, load, sink, rnd)
+            walk_table(tab, nb, inputs, sink, rnd)
             carry = new
         assert carry.shape == (nb, bh, bw) and not np.isnan(carry).any()
         ry = np.arange(by * bh, min(by * bh + bh, h))
@@ -509,14 +529,17 @@ def emulate_inverse(pw, subbands, io=torch.float32):
 
 
 def _emulation_case(wavelet, scheme, levels, tap_opt, block, shape,
-                    io=torch.float32, compute="float32", seed=0):
+                    io=torch.float32, compute="float32", seed=0,
+                    fwd_block=(4, 8)):
+    """K2 at the plane block ``fwd_block`` on every level, K3 at the
+    image-space ``block``, against their plain versions bit for bit."""
     key = TE.PlanKey(wavelet=wavelet, scheme=scheme, levels=levels,
                      shape=shape, dtype="float32", backend="cuda",
                      optimize=False, fuse="pyramid", boundary="periodic",
-                     tap_opt=tap_opt)
+                     tap_opt=tap_opt, device="cpu")
     fs, isch, fprogs, iprogs = TPLAN.pyramid_programs(key)
-    fwd = PW.encode_pyramid(fprogs, fs, block, compute)
-    inv = PW.encode_pyramid(iprogs, isch, block, compute)
+    fwd = PW.encode_forward(fprogs, fs, [fwd_block] * levels, compute)
+    inv = PW.encode_inverse(iprogs, isch, block, compute)
     x = torch.from_numpy(_image(shape, seed=seed)).to(io)
     ll, details = PW.pyramid_forward_ref(fwd, x)
     want = [ll] + [d for det in details for d in det]
@@ -552,10 +575,11 @@ def test_encoded_pyramid_tables_narrow_types(io, compute):
 
 
 def test_encoded_pyramid_main_path_block():
-    """The main path's block (32, 64) and programs, on a 3x64x192 image
+    """The main path's blocks and programs (K2 at the (32, 32) plane tile
+    of every level, K3 at the (64, 128) image block) on a 1x128x320 image
     (several blocks, one ragged column of blocks)."""
-    _emulation_case("cdf97", "ns-polyconv", 3, "full", (32, 64),
-                    (1, 64, 160), seed=12)
+    _emulation_case("cdf97", "ns-polyconv", 3, "full", (64, 128),
+                    (1, 128, 320), seed=12, fwd_block=(32, 32))
 
 
 # ---------------------------------------------------------------------------
@@ -581,9 +605,14 @@ def test_wrappers_check_and_cpu_path_does_not_count():
     with pytest.raises(ValueError, match="pyramid_inverse takes"):
         PW.pyramid_inverse(inv, ll, det[::-1])
     with pytest.raises(ValueError, match="multiples of 2\\^levels"):
-        PW.encode_pyramid(fwd.programs, fwd.sched, (6, 16))
+        PW.encode_inverse(inv.programs, inv.sched, (6, 16))
     with pytest.raises(ValueError, match="unknown compute_dtype"):
-        PW.encode_pyramid(fwd.programs, fwd.sched, (8, 8), "float16")
+        PW.encode_inverse(inv.programs, inv.sched, (8, 8), "float16")
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        PW.encode_forward(fwd.programs, fwd.sched, fwd.level_blocks,
+                          "float16")
+    with pytest.raises(ValueError, match="level blocks"):
+        PW.encode_forward(fwd.programs, fwd.sched, fwd.level_blocks[:1])
 
 
 def test_row_formula_is_exact_for_every_window():
@@ -614,27 +643,34 @@ def test_guards_keep_windows_inside_the_row_bounds():
         spec = _kernels("dd137", s, levels)
         if spec is None:
             continue
-        for pw in (spec.fwd_kernel, spec.inv_kernel):
-            for win in PW.level_windows(pw.sched, pw.block):
-                assert win.window[1] <= TW.MAX_WINDOW_WIDTH
-                assert win.window[0] * win.window[1] <= TW.MAX_WINDOW_ELEMS
+        fwd, inv = spec.fwd_kernel, spec.inv_kernel
+        windows = [w.window for w in PW.level_windows(inv.sched, inv.block)]
+        windows += [(bh + 2 * p.halo, bw + 2 * p.halo) for p, (bh, bw) in
+                    zip(fwd.programs, fwd.level_blocks)]
+        for wh, ww in windows:
+            assert ww <= TW.MAX_WINDOW_WIDTH
+            assert wh * ww <= TW.MAX_WINDOW_ELEMS
     prog = TC.compile_scheme_programs("cdf97", "ns-polyconv", False, False,
                                       "full", "scheme")[0]
     with pytest.raises(ValueError, match="exceeds the kernels' bounds"):
         TW.encode(prog, (256, 256))
     spec = _kernels("cdf97", "ns-polyconv", 1)
     with pytest.raises(ValueError, match="exceeds the kernels' bounds"):
-        PW.encode_pyramid(spec.fwd_kernel.programs, spec.fwd_sched,
+        PW.encode_inverse(spec.inv_kernel.programs, spec.inv_sched,
                           (8, 2048))
+    with pytest.raises(ValueError, match="exceeds the kernels' bounds"):
+        PW.encode_forward(spec.fwd_kernel.programs, spec.fwd_sched,
+                          [(4, 1024)])
 
 
 @pytest.mark.parametrize("scheme", ("ns-polyconv", "sep-lifting"))
 def test_one_level_pyramid_does_the_window_kernels_work(scheme):
     """At one level the forward pyramid's window is K1's: the same term
-    evaluations per image at the matching plane block."""
+    evaluations per image at its plane block, and the same table."""
     spec = _kernels("cdf97", scheme, 1)
     prog = spec.fwd_kernel.programs[0]
-    bh, bw = spec.block
-    win = TW.encode(prog, (bh // 2, bw // 2))
+    win = TW.encode(prog, spec.fwd_kernel.level_blocks[0])
     assert spec.fwd_kernel.term_evaluations((2, 256, 512)) == \
         win.term_evaluations((2, 128, 256))
+    np.testing.assert_array_equal(_levels_of(spec.fwd_kernel)[0][0],
+                                  win.table)

@@ -101,64 +101,88 @@ def _bf16(a):
     return b.astype(np.uint32).view(np.float32)
 
 
+def walk_table(tab, nb, inputs, sink, rnd):
+    """NumPy walk of one program table (``csrc/window_common.cuh``) over
+    a batch of ``nb`` windows, as ``window::walk`` does it: ``inputs`` is
+    the input stage, four ``(nb, wh*ww)`` float32 windows; waves run in
+    order over their flat ranges ``[lo, hi)``, each node of a wave in
+    turn: starting at -0.0 it adds, left to right, each term's read
+    (rounded to the compute dtype) times its coefficient, reading at
+    ``pos + offset`` from the stage; then its values go to its slot and,
+    with their flat positions, to ``sink(mask, q, vals)``.  Shared memory
+    is one flat array (NaN until written) laid out as the kernel lays it
+    out: front pad, the stage, the slots, the back pad; every read a pass
+    makes, the overrun past ``hi`` included, must land inside it, and no
+    node reads a slot its own wave writes."""
+    (_, n_waves, n_nodes, n_terms, n_slots, halo, wh, ww, front, back,
+     elems, _) = (int(v) for v in tab[:TW._HEADER])
+    plane = wh * ww
+    waves = tab[TW._HEADER:TW._HEADER + TW._WAVE_INTS * n_waves].reshape(
+        -1, TW._WAVE_INTS)
+    at = TW._HEADER + TW._WAVE_INTS * n_waves
+    nodes = tab[at:at + TW._NODE_INTS * n_nodes].reshape(-1, TW._NODE_INTS)
+    at += TW._NODE_INTS * n_nodes
+    assert len(tab) == at + 2 * n_terms
+    terms = tab[at:].reshape(n_terms, 2)
+    size = front + (4 + n_slots) * plane + back
+    mem = np.full((nb, size), np.nan, np.float32)
+    base = front                                    # the input stage
+    mem[:, base:base + 4 * plane] = np.concatenate(
+        [np.asarray(x, np.float32).reshape(nb, plane) for x in inputs], 1)
+    assert elems in TW.ELEMS_CHOICES
+    overrun = 32 * (elems - 1)
+    for n0, nn, lo, hi in waves:
+        q = np.arange(lo, hi)
+        written = {4 + int(nodes[n, 2]) // plane
+                   for n in range(n0, n0 + nn) if nodes[n, 2] >= 0}
+        vals = []
+        for t0, nt, _, _ in nodes[n0:n0 + nn]:
+            acc = np.full((nb, q.size), -0.0, np.float32)
+            for off, bits in terms[t0:t0 + nt]:
+                assert 0 <= base + lo + off and \
+                    base + hi + overrun + off <= size, \
+                    "read outside the shared memory"
+                # the source: the plane the offset lands in (a shift moves
+                # it by less than half a plane)
+                assert int(np.floor(off / plane + 0.5)) not in written, \
+                    "a wave reads a slot it writes"
+                c = np.array(bits, np.int32).view(np.float32)
+                acc = rnd(acc + rnd(rnd(mem[:, base + q + off]) * c))
+            vals.append(acc)
+        for (_, _, dst, mask), acc in zip(nodes[n0:n0 + nn], vals):
+            if dst >= 0:
+                mem[:, base + 4 * plane + dst + q] = acc
+            if mask:
+                sink(mask, q, acc)
+
+
 def emulate(win, planes):
-    """NumPy walk of ``win.table`` over every block, mirroring the kernel:
-    mod-indexed window loads, one region per node, reads at
-    ``pos + offset`` from shared-memory slots (NaN until written),
-    masked stores of the block core.  Asserts that every read stays in
-    one slot the node does not write."""
+    """NumPy walk of ``win.table`` over every tile, mirroring the kernel:
+    mod-indexed input windows, the wave walk (:func:`walk_table`), masked
+    stores of the tile core."""
     bf = win.compute_dtype == "bfloat16"
     rnd = _bf16 if bf else (lambda a: a)
-    tab = win.table
-    n_nodes, n_terms, n_slots, r = (int(v) for v in tab[:4])
-    nodes = tab[4:4 + 8 * n_nodes].reshape(-1, 8)
-    terms = tab[4 + 8 * n_nodes:].reshape(-1, 4)
-    assert len(terms) == n_terms
+    r = int(win.table[5])
     nb, hp, wp = planes[0].shape
     bh, bw = win.block
     wh, ww = bh + 2 * r, bw + 2 * r
-    plane = wh * ww
+    assert (int(win.table[6]), int(win.table[7])) == (wh, ww)
     outs = [np.full_like(p, np.nan) for p in planes]
     for y0 in range(0, hp, bh):
         for x0 in range(0, wp, bw):
-            slots = np.full((nb, max(n_slots, 1) * plane), np.nan,
-                            np.float32)
             rows = (y0 - r + np.arange(wh)) % hp
             cols = (x0 - r + np.arange(ww)) % wp
-            for kind, j, dst, qm, qn, t0, nt, mask in nodes:
-                if kind == 0:
-                    ys, xs = np.arange(wh), np.arange(ww)
-                    acc = rnd(planes[j][:, rows][:, :, cols]
-                              .reshape(nb, -1))
-                else:
-                    ys, xs = np.arange(qn, wh - qn), np.arange(qm, ww - qm)
-                    pos = (ys[:, None] * ww + xs[None, :]).ravel()
-                    acc = np.zeros((nb, pos.size), np.float32)
-                    for t, (off, op, bits, _) in enumerate(
-                            terms[t0:t0 + nt]):
-                        src = (pos + off) // plane
-                        assert (src == src[0]).all() and src[0] != dst
-                        s = slots[:, pos + off]
-                        assert not np.isnan(s).any(), "read before write"
-                        c = np.array(bits, np.int32).view(np.float32)
-                        v = s if op == 0 else (-s if op == 1
-                                               else rnd(s * c))
-                        acc = v if t == 0 else rnd(acc + v)
-                pos = (ys[:, None] * ww + xs[None, :]).ravel()
-                if dst >= 0:
-                    slots[:, dst * plane + pos] = acc
-                if mask:
-                    vals = acc.reshape(nb, len(ys), len(xs))
-                    cy = ys[(ys >= r) & (ys < r + bh)]
-                    cx = xs[(xs >= r) & (xs < r + bw)]
-                    gy, gx = y0 + cy - r, x0 + cx - r
-                    keep_y, keep_x = gy < hp, gx < wp
-                    block = vals[:, (cy - ys[0])[keep_y]][
-                        :, :, (cx - xs[0])[keep_x]]
-                    for k in range(4):
-                        if mask >> k & 1:
-                            outs[k][:, gy[keep_y][:, None],
-                                    gx[keep_x][None, :]] = block
+
+            def sink(mask, q, vals, y0=y0, x0=x0):
+                y, x = q // ww, q % ww
+                gy, gx = y0 + y - r, x0 + x - r
+                keep = ((y >= r) & (y < r + bh) & (x >= r) & (x < r + bw)
+                        & (gy < hp) & (gx < wp))
+                for k in range(4):
+                    if mask >> k & 1:
+                        outs[k][:, gy[keep], gx[keep]] = vals[:, keep]
+            walk_table(win.table, nb,
+                       [p[:, rows][:, :, cols] for p in planes], sink, rnd)
     return outs
 
 
@@ -209,16 +233,133 @@ def test_layout_frees_slots_after_last_reader():
         assert (lay.slots[o] == -1) == (not readers)
 
 
+# the main path's level-0 programs (cdf97, tap_opt="full"): barriers per
+# tile (one after the inputs, one per dependency wave), nodes per wave,
+# terms (one shared read each per position)
+MAIN_PROGRAMS = {("ns-polyconv", "scheme"): (5, [6, 4, 6, 4], 92),
+                 ("ns-polyconv", "none"): (3, [6, 4], 46),
+                 ("sep-lifting", "none"): (2, [4], 8)}
+
+
+@pytest.mark.parametrize("inverse", (False, True))
+@pytest.mark.parametrize("scheme,fuse", list(MAIN_PROGRAMS))
+def test_wave_schedule_of_main_path_programs(scheme, fuse, inverse):
+    """One barrier per dependency wave (21 -> 5 on the fused level,
+    11 -> 3 and 5 -> 2 on the steps), in the table header as in the
+    layout; a node's wave is one more than its sources' highest."""
+    barriers, per_wave, terms = MAIN_PROGRAMS[(scheme, fuse)]
+    for prog in TC.compile_scheme_programs("cdf97", scheme, False, inverse,
+                                           "full", fuse):
+        lay = TW.layout(prog)
+        win = TW.encode(prog, TW.BLOCK_TARGET)
+        assert (lay.barriers, lay.n_terms) == (barriers, terms)
+        assert [len(lay.wave_nodes(w)) for w in
+                range(1, lay.n_waves + 1)] == per_wave
+        assert (win.barriers, win.terms) == (barriers, terms)
+        assert int(win.table[1]) == len(per_wave)
+        waves = [lay.waves[i] for i in lay.order]
+        assert waves == sorted(waves) and max(waves) == barriers - 1
+        for i in lay.order:
+            assert lay.waves[i] == 1 + max(lay.waves[t.src]
+                                           for t in prog.nodes[i].terms)
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_wave_liveness_never_overwrites_a_live_slot(scheme):
+    """Every program: a slot is taken only once the last wave that reads
+    its holder has run, and no node reads a slot its own wave writes."""
+    for w, optimize, inverse, opt, fuse in itertools.product(
+            WAVELETS, (False, True), (False, True), ("off", "exact", "full"),
+            ("none", "scheme")):
+        for prog in TC.compile_scheme_programs(w, scheme, optimize, inverse,
+                                               opt, fuse):
+            lay = TW.layout(prog)
+            last = {}
+            for i in lay.order:
+                for t in prog.nodes[i].terms:
+                    last[t.src] = max(last.get(t.src, 0), lay.waves[i])
+            for i in lay.order:
+                wave, s = lay.waves[i], lay.slots[i]
+                assert (s >= 0) == (last.get(i, 0) > wave)
+                if s < 0:
+                    continue
+                for h in lay.order:
+                    if h != i and lay.slots[h] == s and lay.waves[h] < wave:
+                        assert last[h] < wave, (h, i)
+                for j in lay.wave_nodes(wave):
+                    assert all(lay.slots[t.src] != s
+                               for t in prog.nodes[j].terms)
+
+
+@pytest.mark.parametrize("scheme,fuse", list(MAIN_PROGRAMS))
+def test_smem_bytes_is_what_the_kernel_lays_out(scheme, fuse):
+    """The guard's size: the table (rounded to 16 bytes), the front pad,
+    the input stage, the slots and the back pad, from the table header,
+    exactly; and the block the guard picks at the main path's level 0
+    leaves MIN_RESIDENT blocks resident."""
+    prog = TC.compile_scheme_programs("cdf97", scheme, False, False, "full",
+                                      fuse)[0]
+    block = TW.fit_block((prog,), 1024, 1024)
+    win = TW.encode(prog, block)
+    n_slots, halo, wh, ww, front, back = (int(v) for v in win.table[4:10])
+    assert (wh, ww) == win.window and halo == prog.halo
+    assert (front, back) == TW.pads(halo, ww, win.elems)
+    table = -(-len(win.table) // 4) * 4
+    assert win.smem_bytes == 4 * (table + front + (4 + n_slots) * wh * ww
+                                  + back)
+    assert TW.resident_blocks(win.smem_bytes) >= TW.MIN_RESIDENT
+    # the fused 9/7 level: ten slots beside the input stage; at (32, 64)
+    # one block fits an SM, so the guard halves the target to (32, 32)
+    if fuse == "scheme":
+        assert block == (32, 32) and n_slots == 10
+        assert TW.resident_blocks(TW.smem_bytes(prog, (32, 64))) == 1
+    else:
+        assert block == ((32, 32) if scheme == "ns-polyconv" else (32, 64))
+
+
+@pytest.mark.parametrize("scheme,fuse,block,elems", [
+    ("ns-polyconv", "scheme", (32, 32), 6),  # waves of 1222-1294: one pass
+    ("ns-polyconv", "none", (32, 32), 6),
+    ("sep-lifting", "none", (32, 64), 9),    # 2110 positions: one pass
+    ("ns-polyconv", "scheme", (32, 64), 4),  # 2172-2446: three of 4 or 6
+])
+def test_positions_per_thread_fit_the_waves(scheme, fuse, block, elems):
+    """The encoder picks the count of positions per thread that needs the
+    fewest pass slots over the waves (the smaller on a tie), writes it to
+    the header and sizes the back pad for it."""
+    prog = TC.compile_scheme_programs("cdf97", scheme, False, False, "full",
+                                      fuse)[0]
+    win = TW.encode(prog, block)
+    assert win.elems == elems
+    wh, ww = win.window
+    slots = {e: sum(-(-(hi - lo) // (TW.THREADS * e)) * e
+                    for lo, hi in TW.wave_ranges(TW.layout(prog), wh, ww))
+             for e in TW.ELEMS_CHOICES}
+    assert slots[elems] == min(slots.values())
+    assert TW.pads(prog.halo, ww, elems)[1] >= \
+        prog.halo * ww + prog.halo + 32 * (elems - 1)
+    with pytest.raises(ValueError, match="elems 5"):
+        TW.table_rows(prog, TW.layout(prog), wh, ww, prog.halo, "float32",
+                      5)
+
+
 # ---------------------------------------------------------------------------
 # SMEM guard, wrapper checks, launch counter
 # ---------------------------------------------------------------------------
 
 def test_fit_block_keeps_target_when_it_fits():
+    """The target is kept where every launch fits and leaves MIN_RESIDENT
+    blocks resident (the sep-lifting steps); the fused 9/7 level fits the
+    limit at the target but would leave one block resident, so the guard
+    halves it."""
+    progs = TC.compile_scheme_programs("cdf97", "sep-lifting", False, False,
+                                       "full", "none")
+    assert TW.fit_block(progs, 1024, 1024) == TW.BLOCK_TARGET
     progs = TC.compile_scheme_programs("cdf97", "ns-polyconv", False, False,
                                        "full", "scheme")
-    assert TW.fit_block(progs, 1024, 1024) == TW.BLOCK_TARGET
     assert all(TW.smem_bytes(p, TW.BLOCK_TARGET) <= TW.SMEM_LIMIT
                for p in progs)
+    assert TW.fit_block(progs, 1024, 1024) == (32, 32)
 
 
 def test_fit_block_shrinks_then_raises():
@@ -233,11 +374,17 @@ def test_fit_block_shrinks_then_raises():
 
 
 def test_every_program_fits_the_default_block():
+    """Every program fits the shared-memory limit at the target block, and
+    the guard's block leaves MIN_RESIDENT blocks resident."""
     for w, s, opt, inv, lvl, fuse in itertools.product(
             WAVELETS, SCHEMES, (False, True), (False, True),
             ("off", "exact", "full"), ("none", "scheme")):
         progs = TC.compile_scheme_programs(w, s, opt, inv, lvl, fuse)
-        assert TW.fit_block(progs, 1024, 1024) == TW.BLOCK_TARGET
+        assert all(TW.smem_bytes(p, TW.BLOCK_TARGET) <= TW.SMEM_LIMIT
+                   for p in progs)
+        block = TW.fit_block(progs, 1024, 1024)
+        assert TW.resident_blocks(max(TW.smem_bytes(p, block)
+                                      for p in progs)) >= TW.MIN_RESIDENT
 
 
 def test_wrapper_checks_and_cpu_path_does_not_count():
