@@ -16,8 +16,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              planes (37x53, 24x509) and on the main path's plane shapes;
              K2/K3 (``pyramid_forward_ref`` / ``pyramid_inverse_ref``) for
              every wavelet x scheme x tap_opt x direction at 1-3 levels on
-             batched non-smooth images (3x296x424, 2x256x4072) at the
-             block the plan's guard picks.  float32 must agree bit for bit
+             batched non-smooth images (3x296x424, 2x256x4072) and for
+             every scheme at 7 levels (2x256x384), at the tiles the
+             plan's guard picks.  float32 must agree bit for bit
              (max |diff| = 0), float16/bfloat16 I/O and bfloat16 compute
              within the bounds below (the largest |diff| is printed);
 3. main    — ``repro_torch.dwt2`` / ``idwt2`` at B=8, 2048x2048, float32,
@@ -30,16 +31,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
              round trip must hold to ROUNDTRIP_TOL and the coefficients
              must agree with backend "torch" to CROSS_TOL; "pyramid" must
              equal "levels" bit for bit; a small input must agree with
-             the filter-bank oracle; a plan whose inverse window cannot
-             fit (7 levels of sep-lifting) must fall back to "levels";
+             the filter-bank oracle; 7 levels of sep-lifting must run as
+             one K2 and one K3 launch and equal "levels" bit for bit;
+             a budget below one level's window
+             ($REPRO_TORCH_PYRAMID_SMEM_LIMIT) must fall back to
+             "levels", counted, and compute what "levels" computes;
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
              operations / 67 TFLOP/s); per K1 launch the barriers per
              tile, the shared reads per position (one per term), the
-             grid and the resident blocks per SM; for K2 the grid, the resident
-             blocks per SM and its LL scratch bytes; K1's library
-             yardstick is one
+             grid and the resident blocks per SM; for K2 and K3 their
+             per-level tiles, grid, resident blocks per SM and LL
+             scratch bytes; K1's library yardstick is one
              F.conv2d of the composed filter bank of the fused level
              (cuDNN with TF32 off); K2/K3 have none (no one PyTorch call
              computes a multi-level pyramid), and are printed beside the
@@ -303,6 +307,10 @@ def phase_pyramid_kernel(torch, R, PW, device, cpu, gen):
         if not run(w, sch, levels, tap_opt, shape, torch.float32,
                    "float32"):
             skipped.append((w, sch, levels, tap_opt, shape))
+    # seven levels: the coarsest planes (2x3) are far smaller than a tile
+    for sch in SCHEMES:
+        check(run(MAIN["wavelet"], sch, 7, "full", (2, 256, 384),
+                  torch.float32, "float32"), f"{sch} falls back at 7 levels")
     for sch, (io, cdt) in itertools.product(
             ("ns-polyconv", "sep-lifting"),
             ((torch.float16, "float32"), (torch.bfloat16, "float32"),
@@ -410,34 +418,72 @@ def phase_main(torch, R, TW, PW, device, cpu, gen):
               f"{cross!r}{extra}")
         del pyr, rec, ref, planes, ref_planes
     print(f"main path launches: {launched}")
-    # the shared-memory guard: 7 levels of sep-lifting cannot fit (the
-    # inverse kernel's windows carry the compound margin)
+    phase_deep(torch, R, PW, device, gen)
+    return launched, plans, x
+
+
+def phase_deep(torch, R, PW, device, gen):
+    """Seven levels of sep-lifting as one K2 and one K3 launch, equal to
+    fuse="levels"; then the shared-memory guard's fallback, forced by a
+    budget below one level's window."""
+    import os
     from repro_torch.engine import PYRAMID_COUNTERS
-    before = PYRAMID_COUNTERS["smem_fallbacks"]
+    from repro_torch.engine.plan import PYRAMID_SMEM_LIMIT_ENV
+    wav = MAIN["wavelet"]
+    kw = dict(wavelet=wav, scheme="sep-lifting", device=device)
     deep = torch.randn((1, 256, 256), generator=gen).to(device)
-    plan = R.get_plan(shape=tuple(deep.shape), wavelet=wav, levels=7,
-                      scheme="sep-lifting", fuse="pyramid", backend="cuda",
-                      device=device, cache=R.PlanCache())
+    before = PYRAMID_COUNTERS["smem_fallbacks"]
+    plan = R.get_plan(shape=tuple(deep.shape), levels=7, fuse="pyramid",
+                      backend="cuda", cache=R.PlanCache(), **kw)
+    check(plan.pyramid is not None and plan.launches == 1
+          and PYRAMID_COUNTERS["smem_fallbacks"] == before,
+          f"7-level sep-lifting fell back: {plan.fallback}")
+    n0 = (PW.FORWARD.launches, PW.INVERSE.launches)
+    a = plan.execute(deep)
+    rec = plan.execute_inverse(a)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        check((PW.FORWARD.launches, PW.INVERSE.launches)
+              == (n0[0] + 1, n0[1] + 1),
+              "7-level pyramid did not run as one K2 and one K3 launch")
+    b = R.dwt2(deep, levels=7, fuse="levels", **kw)
+    planes = [a.ll] + [d for det in a.details for d in det]
+    check(all(torch.equal(p, q) for p, q in
+              zip(planes, [b.ll] + [d for det in b.details for d in det])),
+          "7-level pyramid dwt2 differs from fuse='levels'")
+    lvl_rec = R.idwt2(a, fuse="levels", **kw)
+    check(torch.equal(rec, lvl_rec),
+          f"7-level pyramid idwt2 differs from fuse='levels': "
+          f"{max_abs(rec, lvl_rec)}")
+    print(f"7-level sep-lifting: one K2 + one K3 launch, equal to "
+          f"fuse='levels'; tiles {plan.pyramid.inv_kernel.level_blocks}, "
+          f"smem {plan.pyramid.smem_bytes} B")
+    old = os.environ.get(PYRAMID_SMEM_LIMIT_ENV)
+    os.environ[PYRAMID_SMEM_LIMIT_ENV] = "4096"
+    try:
+        plan = R.get_plan(shape=tuple(deep.shape), levels=7, fuse="pyramid",
+                          backend="cuda", cache=R.PlanCache(), **kw)
+    finally:
+        if old is None:
+            del os.environ[PYRAMID_SMEM_LIMIT_ENV]
+        else:
+            os.environ[PYRAMID_SMEM_LIMIT_ENV] = old
     check(plan.pyramid is None and plan.launches == 7
           and PYRAMID_COUNTERS["smem_fallbacks"] == before + 1,
-          f"7-level sep-lifting did not fall back: {plan.fallback}")
+          f"a 4096 B budget did not fall back: {plan.fallback}")
     a = plan.execute(deep)
-    bb = R.dwt2(deep, wavelet=wav, levels=7, scheme="sep-lifting",
-                fuse="levels", device=device)
     check(all(torch.equal(p, q) for p, q in
               zip([a.ll] + [d for det in a.details for d in det],
-                  [bb.ll] + [d for det in bb.details for d in det])),
+                  [b.ll] + [d for det in b.details for d in det]))
+          and torch.equal(plan.execute_inverse(a), lvl_rec),
           "fallback plan differs from fuse='levels'")
     print(f"fallback: {plan.fallback}")
-    return launched, plans, x
 
 
 def _pyramid_bytes(PP, pw, h, w):
     """Modelled and unique bytes of one fused-pyramid launch per image."""
-    if pw.kind == "forward":
-        return PP.pyramid_hbm_bytes(pw.sched, (h, w), 4, pw.level_blocks,
-                                    halos=[p.halo for p in pw.programs])
-    return PP.pyramid_hbm_bytes(pw.sched, (h, w), 4, pw.block)
+    return PP.pyramid_hbm_bytes((h, w), 4, pw.level_blocks,
+                                [p.halo for p in pw.programs])
 
 
 def _time_transforms(torch, R, PP, device, plans, x, timer):
@@ -572,12 +618,9 @@ def phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer):
         grid, per_sm = kernel.last_grid
         p_ms = timer.ms(ref, reps=5, warmup=1)
         nb = _pyramid_bytes(PP, pw, h, w)
-        scratch = (sum(b * (h >> (l + 1)) * (w >> (l + 1))
-                       for l in range(pw.levels - 1)) * 4
-                   if name == "pyramid_forward" else 0)
-        block = ("/".join(f"{a}x{c}" for a, c in pw.level_blocks)
-                 if name == "pyramid_forward"
-                 else f"{pw.block[0]}x{pw.block[1]}")
+        scratch = sum(b * (h >> (l + 1)) * (w >> (l + 1))
+                      for l in range(pw.levels - 1)) * 4
+        block = "/".join(f"{a}x{c}" for a, c in pw.level_blocks)
         unique, modelled = nb.unique * b, nb.modelled * b
         ops = sum((p.stats()["muls"] + p.stats()["adds"]) * b
                   * (h >> (l + 1)) * (w >> (l + 1))

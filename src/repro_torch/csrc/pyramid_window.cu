@@ -10,41 +10,36 @@
 // image is read once and every subband written once, 2 x 4 B per pixel
 // in float32), the table walk in practice.
 //
-// K2, one cooperative launch, finest level to coarsest.  Level l is the
-// window kernel's work on the four polyphase planes of that level's image
-// (the input at level 0, the LL level l-1 wrote at l > 0): persistent
-// blocks loop over the level's bh_l x bw_l plane tiles, each window
-// carrying only program l's own halo, gathered with the split at stride 2
-// folded into the addresses (mod H_l / W_l at the edges) and staged
-// through cp.async; HL/LH/HH go to the outputs, LL to a scratch plane in
-// the I/O dtype (the per-level path's rounding between levels) or, at
-// the last level, to the LL output.  All blocks then meet at a grid-wide
-// barrier before the next level reads the LL.  So the work is that of
-// the per-level path, without its split copies and launch gaps; the LL
-// between levels goes through device memory (mostly the 50 MB L2).
+// Both are one cooperative launch of persistent blocks that run the
+// levels in turn, each level the window kernel's work at the block the
+// per-level path picks for it: the blocks loop over the level's
+// bh_l x bw_l plane tiles, each window carrying only program l's own
+// halo, gathered mod the level's dims and staged through cp.async.  All
+// blocks meet at a grid-wide barrier before the next level reads what
+// this one wrote.  So the work is that of the per-level path, without its
+// split and merge copies and launch gaps; the LL between levels goes
+// through a scratch plane in device memory (mostly the 50 MB L2), stored
+// in the I/O dtype, the per-level path's rounding between levels.
 //
-// K3, finest-first grid of image-space blocks bh x bw (multiples of 2^L),
-// coarsest level to finest, every intermediate LL kept in shared memory:
-// level l gathers the LL window (the carry, or at the coarsest level the
-// LL plane) and the level's three detail windows with halo margins[l+1],
-// mod each subband's dims; runs program l with its outputs at margin
-// shrinks[l]; and interleaves the four outputs (out[2i,2j] = y0,
-// [2i,2j+1] = y1, [2i+1,2j] = y2, [2i+1,2j+1] = y3) into the carry,
-// rounded through the I/O dtype, or at level 0 into the block of the
-// image, ragged edge masked.  Its windows carry the compound margin of
-// the coarser levels.
+// K2, finest level to coarsest.  Level l reads the four polyphase planes
+// of its image (the input at level 0, the LL level l-1 wrote at l > 0)
+// with the split at stride 2 folded into the addresses; HL/LH/HH go to
+// the outputs, LL to the scratch plane or, at the last level, to the LL
+// output.
+//
+// K3, coarsest level to finest.  Level l reads the LL (the coarsest LL
+// input at l = L-1, else the scratch plane level l+1 wrote) and the
+// level's HL, LH, HH; its sink interleaves the four outputs (y_k at plane
+// position (i, j) to pixel (2i + (k >> 1), 2j + (k & 1))) into level l's
+// image: the scratch LL of level l-1 or, at level 0, the output.
 //
 // Pyramid table (int32, built by pyramid_window.encode_forward /
 // encode_inverse):
-//   header  levels, level_ints, n_slots, slot_floats, front, back, 0, 0
-//           (the largest level table, slot count, window, pads)
-//   level   offset of its table, then K2: bh, bw, 0; K3: halo, shrink, 0
+//   header  levels, the largest level table's ints, 0 x 6
+//   level   offset of its table, bh, bw, 0
 //   tables  one window table per level (window_common.cuh), at offset
-// K2's shared memory is the window kernel's for the level being walked;
-// K3's: the largest level table (level_ints, rounded up to 4), the front
-// pad, room for one input stage of four windows and n_slots slots of
-// slot_floats each (level l's stage and slots at its own window size), the
-// back pad, then the carry.
+// Shared memory is the window kernel's for the level being walked (the
+// launch reserves the largest).
 #include <cooperative_groups.h>
 
 #include "window_common.cuh"
@@ -60,6 +55,18 @@ constexpr int kLevelInts = 4;
 
 struct PyrPlanes { void* p[1 + 3 * kMaxLevels]; };
 struct LevelPlanes { void* p[kMaxLevels]; };
+
+// Copy level l's table into shared memory; returns its level ints.  The
+// walk of the level before ended on a barrier.
+__device__ __forceinline__ const int* load_level(const int* table, int l,
+                                                 int* smem) {
+  const int* lv = table + kPyrHeader + l * kLevelInts;
+  const int* src = table + lv[0];
+  const int n = table_len(src);
+  for (int i = threadIdx.x; i < n; i += kThreads) smem[i] = src[i];
+  __syncthreads();
+  return lv;
+}
 
 // --- K2 ----------------------------------------------------------------
 
@@ -88,7 +95,7 @@ struct SplitGather {
 };
 
 template <typename T>
-struct LevelTiles {
+struct SplitTiles {
   const T* img;
   int h, w;
   OutPlanes out;  // LL (scratch or the LL output), HL, LH, HH
@@ -104,25 +111,21 @@ struct LevelTiles {
 
 template <typename T, int kE, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-pyramid_forward_kernel(const int* __restrict__ table,
-                       const T* __restrict__ x, PyrPlanes out,
-                       LevelPlanes scratch, int batch, int h, int w) {
+pyramid_forward_kernel(const int* __restrict__ table, void* __restrict__ x,
+                       PyrPlanes out, LevelPlanes scratch, int batch, int h,
+                       int w) {
   extern __shared__ __align__(16) int smem[];
   cg::grid_group grid = cg::this_grid();
   const int levels = table[0];
   for (int l = 0; l < levels; ++l) {
-    const int* lv = table + kPyrHeader + l * kLevelInts;
-    const int* src = table + lv[0];
-    const int n = table_len(src);
-    for (int i = threadIdx.x; i < n; i += kThreads) smem[i] = src[i];
-    __syncthreads();
-    const T* img = l == 0 ? x : static_cast<const T*>(scratch.p[l - 1]);
+    const int* lv = load_level(table, l, smem);
+    const T* img = static_cast<const T*>(l == 0 ? x : scratch.p[l - 1]);
     const bool last = l + 1 == levels;
     const OutPlanes o{{last ? out.p[0] : scratch.p[l], out.p[1 + 3 * l],
                        out.p[2 + 3 * l], out.p[3 + 3 * l]}};
     const TileGrid tiles(batch, h >> (l + 1), w >> (l + 1), lv[1], lv[2],
-                         src[5]);
-    run_tiles<T, kE, kBf16>(smem, LevelTiles<T>{img, h >> l, w >> l, o,
+                         smem[5]);
+    run_tiles<T, kE, kBf16>(smem, SplitTiles<T>{img, h >> l, w >> l, o,
                                                  tiles, tiles.n_tiles});
     // level l + 1 reads the LL every block of level l wrote
     if (!last) grid.sync();
@@ -131,211 +134,162 @@ pyramid_forward_kernel(const int* __restrict__ table,
 
 // --- K3 ----------------------------------------------------------------
 
-// Level l: LL (j = 0) from the carry, or at the coarsest level from the
-// LL plane; HL/LH/HH (j = 1..3) from the level's detail planes, mod the
-// subband dims.
+// The level's four input planes (LL, HL, LH, HH), gathered mod the plane
+// dims at the edges.
 template <typename T>
-struct SubbandSrc {
-  struct Idx {
-    size_t g;   // offset in the subband planes
-    int c;      // offset in the carry
-  };
-  const T* ll;            // coarsest LL (used when carry is nullptr)
-  const T* d0;
-  const T* d1;
-  const T* d2;
-  const float* carry;
-  int hs, ws, y0, x0, cw;
-  size_t base;
-  bool interior;
+struct SubbandGather {
+  using Idx = size_t;
+  InPlanes in;
+  Geom g;
   __device__ __forceinline__ Idx index(int y, int x) const {
-    int gy = y0 + y;
-    int gx = x0 + x;
-    if (!interior) {
-      gy = wrap(gy, hs);
-      gx = wrap(gx, ws);
+    int gy = g.y0 - g.r + y;
+    int gx = g.x0 - g.r + x;
+    if (!g.interior) {
+      gy = wrap(gy, g.hp);
+      gx = wrap(gx, g.wp);
     }
-    return Idx{base + static_cast<size_t>(gy) * ws + gx, y * cw + x};
+    return g.base + static_cast<size_t>(gy) * g.wp + gx;
   }
-  __device__ __forceinline__ float load(int j, Idx i) const {
-    switch (j) {
-      case 0: return carry != nullptr ? carry[i.c] : to_float(ll[i.g]);
-      case 1: return to_float(d0[i.g]);
-      case 2: return to_float(d1[i.g]);
-      default: return to_float(d2[i.g]);
+  __device__ __forceinline__ const T* ptr(int j, Idx i) const {
+    return static_cast<const T*>(in.p[j]) + i;
+  }
+};
+
+// Output k at plane position (gy, gx) of the tile core goes to pixel
+// (2 gy + (k >> 1), 2 gx + (k & 1)) of the level's 2hp x 2wp image, in the
+// I/O dtype; the ragged edge is masked, as store_core masks it.
+template <typename T>
+struct InterleaveSink {
+  T* img;
+  Geom g;
+  __device__ __forceinline__ void operator()(int mask, int y, int x,
+                                             float v) const {
+    if (y < g.r || y >= g.r + g.bh || x < g.r || x >= g.r + g.bw) return;
+    const int gy = g.y0 + y - g.r;
+    const int gx = g.x0 + x - g.r;
+    if (gy >= g.hp || gx >= g.wp) return;
+    const size_t w = 2 * static_cast<size_t>(g.wp);
+    T* p = img + g.base * 4 + 2 * static_cast<size_t>(gy) * w + 2 * gx;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (mask & (1 << k)) from_float(p + (k >> 1) * w + (k & 1), v);
     }
   }
 };
 
-// Output k of level l at plane position (i, j) = (y - s, x - s) goes to
-// interleaved position (2i + (k >> 1), 2j + (k & 1)): of the carry, rounded
-// through the I/O dtype, or at level 0 of the image block.
-template <typename T, bool kBf16>
-struct InverseSink {
-  T* out;
-  float* carry;           // nullptr at level 0
-  int s, wh, ww;
-  int h, w, y0, x0;       // level 0: the image and the block's origin
-  size_t base;
-  __device__ __forceinline__ void operator()(int mask, int y, int x,
-                                             float v) const {
-    if (y < s || y >= wh - s || x < s || x >= ww - s) return;
-    const int iy = 2 * (y - s);
-    const int ix = 2 * (x - s);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (!(mask & (1 << k))) continue;
-      const int py = iy + (k >> 1);
-      const int px = ix + (k & 1);
-      if (carry != nullptr) {
-        carry[py * 2 * (ww - 2 * s) + px] = round_c<kBf16>(round_io<T>(v));
-      } else if (y0 + py < h && x0 + px < w) {
-        from_float(out + base + static_cast<size_t>(y0 + py) * w + x0 + px,
-                   v);
-      }
-    }
+template <typename T>
+struct SubbandTiles {
+  InPlanes in;
+  T* img;
+  TileGrid grid;
+  int n_tiles;
+  __device__ __forceinline__ SubbandGather<T> gather(int t) const {
+    return SubbandGather<T>{in, grid.geom(t)};
+  }
+  __device__ __forceinline__ InterleaveSink<T> sink(int t) const {
+    return InterleaveSink<T>{img, grid.geom(t)};
   }
 };
 
 template <typename T, int kE, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-pyramid_inverse_kernel(const int* __restrict__ table, PyrPlanes in,
-                       T* __restrict__ out, int h, int w, int bh, int bw) {
+pyramid_inverse_kernel(const int* __restrict__ table, void* __restrict__ x,
+                       PyrPlanes in, LevelPlanes scratch, int batch, int h,
+                       int w) {
   extern __shared__ __align__(16) int smem[];
+  cg::grid_group grid = cg::this_grid();
   const int levels = table[0];
-  const int slot = table[3];
-  float* in0 = stage0(smem, table[1], table[4]);
-  float* carry = in0 + (4 + table[2]) * slot + table[5];
   for (int l = levels - 1; l >= 0; --l) {
-    const int* lv = table + kPyrHeader + l * kLevelInts;
-    const int* src = table + lv[0];
-    const int r = lv[1];
-    const int s = lv[2];
-    const int n = table_len(src);
-    // the walk of the level before ended on a barrier
-    for (int i = threadIdx.x; i < n; i += kThreads) smem[i] = src[i];
-    const int hs = h >> (l + 1);
-    const int ws = w >> (l + 1);
-    const int ch = bh >> (l + 1);
-    const int cw = bw >> (l + 1);
-    const int wh = ch + 2 * r;
-    const int ww = cw + 2 * r;
-    const int y0 = blockIdx.y * ch - r;
-    const int x0 = blockIdx.x * cw - r;
-    const bool coarsest = l + 1 == levels;
-    const SubbandSrc<T> src_planes{
-        static_cast<const T*>(in.p[0]),
-        static_cast<const T*>(in.p[1 + 3 * l]),
-        static_cast<const T*>(in.p[2 + 3 * l]),
-        static_cast<const T*>(in.p[3 + 3 * l]),
-        coarsest ? nullptr : carry,
-        hs, ws, y0, x0, ww,
-        static_cast<size_t>(blockIdx.z) * hs * ws,
-        y0 >= 0 && y0 + wh <= hs && x0 >= 0 && x0 + ww <= ws};
-    load_window(src_planes, in0, wh, ww);
-    __syncthreads();
-    const InverseSink<T, kBf16> sink{
-        out, l == 0 ? nullptr : carry, s, wh, ww, h, w,
-        static_cast<int>(blockIdx.y) * bh, static_cast<int>(blockIdx.x) * bw,
-        static_cast<size_t>(blockIdx.z) * h * w};
-    // the level's slots follow its input stage (the table's offsets)
-    walk<kE, kBf16>(smem, in0, sink);
+    const int* lv = load_level(table, l, smem);
+    const InPlanes src{{l + 1 == levels ? in.p[0] : scratch.p[l],
+                        in.p[1 + 3 * l], in.p[2 + 3 * l], in.p[3 + 3 * l]}};
+    T* img = static_cast<T*>(l == 0 ? x : scratch.p[l - 1]);
+    const TileGrid tiles(batch, h >> (l + 1), w >> (l + 1), lv[1], lv[2],
+                         smem[5]);
+    run_tiles<T, kE, kBf16>(smem,
+                            SubbandTiles<T>{src, img, tiles, tiles.n_tiles});
+    // level l - 1 reads the image every block of level l wrote
+    if (l > 0) grid.sync();
   }
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
+// --- launch ------------------------------------------------------------
 
-template <typename T, int kE, bool kBf16>
-cudaError_t launch_forward(const int* table, const void* x,
-                           const PyrPlanes& out, const LevelPlanes& scratch,
-                           int batch, int h, int w, int max_tiles, int smem,
-                           int device, cudaStream_t stream,
-                           int* info) {
-  auto kernel = pyramid_forward_kernel<T, kE, kBf16>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  int sms = 0;
+using PyramidKernel = void (*)(const int*, void*, PyrPlanes, LevelPlanes,
+                               int, int, int);
+
+// One launch of either kernel: ``image`` is K2's input or K3's output,
+// ``subbands`` the other side.
+struct Launch {
+  const int* table;
+  void* image;
+  PyrPlanes subbands;
+  LevelPlanes scratch;
+  int batch, h, w, max_tiles, smem, device;
+  cudaStream_t stream;
+  int* info;
+};
+
+// Every block must be resident at once for the grid-wide barrier: the
+// grid is the most tiles of any level, capped at what fits the card.  A
+// launch that cannot be cooperative (no support, or a block that does not
+// fit an SM) returns cudaErrorCooperativeLaunchTooLarge and runs nothing.
+cudaError_t launch_cooperative(PyramidKernel kernel, Launch a) {
+  int optin = 0;
   int coop = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, a.device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, a.device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               a.device);
+  if (err != cudaSuccess) return err;
+  if (!coop || a.smem > optin) return cudaErrorCooperativeLaunchTooLarge;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      kThreads, a.smem);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1 || !coop) return cudaErrorCooperativeLaunchTooLarge;
-  // every block must be resident at once for the grid-wide barrier
-  const int grid = max_tiles < per_sm * sms ? max_tiles : per_sm * sms;
-  if (info != nullptr) {
-    info[0] = grid;
-    info[1] = per_sm;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int grid = a.max_tiles < per_sm * sms ? a.max_tiles : per_sm * sms;
+  if (a.info != nullptr) {
+    a.info[0] = grid;
+    a.info[1] = per_sm;
   }
-  const T* xt = static_cast<const T*>(x);
-  void* args[] = {const_cast<int**>(&table), const_cast<T**>(&xt),
-                  const_cast<PyrPlanes*>(&out),
-                  const_cast<LevelPlanes*>(&scratch), &batch, &h, &w};
+  void* args[] = {&a.table, &a.image, &a.subbands, &a.scratch, &a.batch,
+                  &a.h, &a.w};
   return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                     dim3(grid), dim3(kThreads), args, smem,
-                                     stream);
+                                     dim3(grid), dim3(kThreads), args,
+                                     a.smem, a.stream);
 }
 
-template <typename T, int kE, bool kBf16>
-cudaError_t launch_inverse(const int* table, const PyrPlanes& in, void* out,
-                           int batch, int h, int w, int bh, int bw, int smem,
-                           cudaStream_t stream, int* info) {
-  auto kernel = pyramid_inverse_kernel<T, kE, kBf16>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((w + bw - 1) / bw, (h + bh - 1) / bh, batch);
-  if (info != nullptr) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kernel,
-                                                        kThreads, smem);
-    if (err != cudaSuccess) return err;
-    info[0] = static_cast<int>(grid.x * grid.y * grid.z);
+template <bool kInverse, typename T, int kE, bool kBf16>
+cudaError_t launch_kernel(const Launch& a) {
+  return launch_cooperative(kInverse ? &pyramid_inverse_kernel<T, kE, kBf16>
+                                     : &pyramid_forward_kernel<T, kE, kBf16>,
+                            a);
+}
+
+// elems: the walk's positions per thread (the level tables' headers')
+template <bool kInverse, typename T, bool kBf16>
+cudaError_t launch_elems(int elems, const Launch& a) {
+  switch (elems) {
+    case 4: return launch_kernel<kInverse, T, 4, kBf16>(a);
+    case 6: return launch_kernel<kInverse, T, 6, kBf16>(a);
+    case 9: return launch_kernel<kInverse, T, 9, kBf16>(a);
+    default: return cudaErrorInvalidValue;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(table, in, static_cast<T*>(out),
-                                           h, w, bh, bw);
-  return cudaGetLastError();
 }
 
-// The walk's positions per thread (the level tables' headers').
-#define PYRAMID_ELEMS(CALL)                                                \
-  switch (elems) {                                                         \
-    case 4: return CALL(4);                                                \
-    case 6: return CALL(6);                                                \
-    case 9: return CALL(9);                                                \
-    default: return cudaErrorInvalidValue;                                 \
-  }
-
-template <typename T, bool kBf16>
-cudaError_t forward_elems(int elems, const int* table, const void* x,
-                          const PyrPlanes& out, const LevelPlanes& scratch,
-                          int batch, int h, int w, int max_tiles, int smem,
-                          int device, cudaStream_t stream, int* info) {
-#define PYRAMID_FORWARD(E)                                                 \
-  launch_forward<T, E, kBf16>(table, x, out, scratch, batch, h, w,         \
-                              max_tiles, smem, device, stream, info)
-  PYRAMID_ELEMS(PYRAMID_FORWARD)
-#undef PYRAMID_FORWARD
+template <bool kInverse, typename T>
+cudaError_t launch_compute(int bf16_compute, int elems, const Launch& a) {
+  return bf16_compute ? launch_elems<kInverse, T, true>(elems, a)
+                      : launch_elems<kInverse, T, false>(elems, a);
 }
-
-template <typename T, bool kBf16>
-cudaError_t inverse_elems(int elems, const int* table, const PyrPlanes& in,
-                          void* out, int batch, int h, int w, int bh, int bw,
-                          int smem, cudaStream_t stream, int* info) {
-#define PYRAMID_INVERSE(E)                                                 \
-  launch_inverse<T, E, kBf16>(table, in, out, batch, h, w, bh, bw, smem,   \
-                              stream, info)
-  PYRAMID_ELEMS(PYRAMID_INVERSE)
-#undef PYRAMID_INVERSE
-}
-
-#undef PYRAMID_ELEMS
 
 template <int N, typename P>
 bool to_planes(void* const* ptrs, int n, P* planes) {
@@ -345,79 +299,70 @@ bool to_planes(void* const* ptrs, int n, P* planes) {
   return true;
 }
 
+template <bool kInverse>
+int launch_pyramid(const int* table, void* image, void* const* subbands,
+                   int n_subbands, void* const* scratch_planes,
+                   int n_scratch, int batch, int h, int w, int max_tiles,
+                   int smem, int elems, int io_dtype, int bf16_compute,
+                   int device, void* stream, int* info) {
+  // this library carries its own runtime: point it at the stream's device
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  Launch a{table, image, {}, {}, batch, h, w, max_tiles, smem, device,
+           static_cast<cudaStream_t>(stream), info};
+  if (n_subbands < 1 || max_tiles < 1 ||
+      !to_planes<1 + 3 * kMaxLevels>(subbands, n_subbands, &a.subbands) ||
+      !to_planes<kMaxLevels>(scratch_planes, n_scratch, &a.scratch)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (io_dtype) {
+    case 0:
+      return launch_compute<kInverse, float>(bf16_compute, elems, a);
+    case 1:
+      return launch_compute<kInverse, __half>(bf16_compute, elems, a);
+    case 2:
+      return launch_compute<kInverse, __nv_bfloat16>(bf16_compute, elems, a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// subbands: 1 + 3L pointers in pyramid_out_levels order (coarsest LL,
-// then HL, LH, HH of each level, finest first); scratch: L - 1 LL planes
-// of levels 0 .. L-2 in the I/O dtype; max_tiles: the most tiles of any
-// level; io_dtype: 0 float32, 1 float16, 2 bfloat16; smem: the launch's
-// dynamic shared memory in bytes (pyramid_window.PyramidWindow.smem_bytes);
-// elems: the walk's positions per thread (pyramid_window.PyramidWindow.
-// elems); device: the CUDA ordinal the stream belongs to; info: receives
-// the grid and the resident blocks per SM (may be null).  Each returns a
-// cudaError_t.
-int pyramid_forward_launch(const int* table, const void* x,
+// image: K2's (B, H, W) input or K3's output; subbands: 1 + 3L pointers
+// in pyramid_out_levels order (coarsest LL, then HL, LH, HH of each
+// level, finest first), K2's outputs or K3's inputs; scratch: L - 1 LL
+// planes of levels 0 .. L-2 in the I/O dtype; max_tiles: the most tiles
+// of any level; io_dtype: 0 float32, 1 float16, 2 bfloat16; smem: the
+// launch's dynamic shared memory in bytes (pyramid_window.PyramidWindow.
+// smem_bytes); elems: the walk's positions per thread (pyramid_window.
+// PyramidWindow.elems); device: the CUDA ordinal the stream belongs to;
+// info: receives the grid and the resident blocks per SM (may be null).
+// Each returns a cudaError_t.
+int pyramid_forward_launch(const int* table, void* image,
                            void* const* subbands, int n_subbands,
                            void* const* scratch_planes, int n_scratch,
                            int batch, int h, int w, int max_tiles, int smem,
                            int elems, int io_dtype, int bf16_compute,
                            int device, void* stream, int* info) {
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  PyrPlanes out;
-  LevelPlanes scratch;
-  if (n_subbands < 1 ||
-      !to_planes<1 + 3 * kMaxLevels>(subbands, n_subbands, &out) ||
-      !to_planes<kMaxLevels>(scratch_planes, n_scratch, &scratch)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf = bf16_compute != 0;
-#define PYRAMID_FORWARD_LAUNCH(T)                                          \
-  return static_cast<int>(                                                 \
-      bf ? forward_elems<T, true>(elems, table, x, out, scratch, batch, h, \
-                                  w, max_tiles, smem, device, s, info)     \
-         : forward_elems<T, false>(elems, table, x, out, scratch, batch,   \
-                                   h, w, max_tiles, smem, device, s, info))
-  switch (io_dtype) {
-    case 0: PYRAMID_FORWARD_LAUNCH(float);
-    case 1: PYRAMID_FORWARD_LAUNCH(__half);
-    case 2: PYRAMID_FORWARD_LAUNCH(__nv_bfloat16);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef PYRAMID_FORWARD_LAUNCH
+  return launch_pyramid<false>(table, image, subbands, n_subbands,
+                               scratch_planes, n_scratch, batch, h, w,
+                               max_tiles, smem, elems, io_dtype,
+                               bf16_compute, device, stream, info);
 }
 
-int pyramid_inverse_launch(const int* table, void* const* subbands,
-                           int n_subbands, void* out, int batch, int h,
-                           int w, int bh, int bw, int smem, int elems,
-                           int io_dtype,
-                           int bf16_compute, int device, void* stream,
-                           int* info) {
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  PyrPlanes in;
-  if (n_subbands < 1 ||
-      !to_planes<1 + 3 * kMaxLevels>(subbands, n_subbands, &in)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf = bf16_compute != 0;
-#define PYRAMID_INVERSE_LAUNCH(T)                                          \
-  return static_cast<int>(                                                 \
-      bf ? inverse_elems<T, true>(elems, table, in, out, batch, h, w, bh,  \
-                                  bw, smem, s, info)                       \
-         : inverse_elems<T, false>(elems, table, in, out, batch, h, w, bh, \
-                                   bw, smem, s, info))
-  switch (io_dtype) {
-    case 0: PYRAMID_INVERSE_LAUNCH(float);
-    case 1: PYRAMID_INVERSE_LAUNCH(__half);
-    case 2: PYRAMID_INVERSE_LAUNCH(__nv_bfloat16);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef PYRAMID_INVERSE_LAUNCH
+int pyramid_inverse_launch(const int* table, void* image,
+                           void* const* subbands, int n_subbands,
+                           void* const* scratch_planes, int n_scratch,
+                           int batch, int h, int w, int max_tiles, int smem,
+                           int elems, int io_dtype, int bf16_compute,
+                           int device, void* stream, int* info) {
+  return launch_pyramid<true>(table, image, subbands, n_subbands,
+                              scratch_planes, n_scratch, batch, h, w,
+                              max_tiles, smem, elems, io_dtype, bf16_compute,
+                              device, stream, info);
 }
 
 const char* pyramid_window_error_string(int err) {

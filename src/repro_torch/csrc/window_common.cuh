@@ -28,8 +28,6 @@
 // the kernels, so the stage and the walk take policies:
 //   Gather  typename Idx; Idx index(int y, int x) const;
 //           const T* ptr(int j, Idx) const   (input plane j, device memory)
-//   Src     typename Idx; Idx index(int y, int x) const;
-//           float load(int j, Idx) const     (input plane j, any memory)
 //   Sink    void operator()(int mask, int y, int x, float v) const
 //           (window position (y, x) of an output node, `mask` its bits)
 //
@@ -200,20 +198,6 @@ __device__ __forceinline__ void stage(const Gather& g, float* buf, int wh,
     }
   }
   __pipeline_commit();
-}
-
-// The same from any memory, synchronously (the caller puts the barrier).
-template <typename Src>
-__device__ __forceinline__ void load_window(const Src& src, float* buf,
-                                            int wh, int ww) {
-  const int plane = wh * ww;
-  const float inv_w = 1.0f / ww;
-  for (int i = threadIdx.x; i < plane; i += kThreads) {
-    const int y = row_of(i, inv_w);
-    const typename Src::Idx idx = src.index(y, i - y * ww);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) buf[j * plane + i] = src.load(j, idx);
-  }
 }
 
 // One wave over its flat range: per pass, each node of the wave over the

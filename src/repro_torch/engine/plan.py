@@ -20,14 +20,13 @@ Execution semantics (see :mod:`repro_torch.engine.backends` /
   halo); PyTorch runs eagerly, so the two differ only in name;
 * ``fuse="pyramid"`` — on the ``cuda`` backend the whole multi-level
   transform is **one launch** of a fused-pyramid kernel (forward K2,
-  inverse K3, :mod:`repro_torch.kernels.pyramid_window`).  K2 is one
+  inverse K3, :mod:`repro_torch.kernels.pyramid_window`).  Each is one
   cooperative launch that runs the levels in turn over the whole image,
-  each at the per-level path's block and halo, the split folded into its
-  gather and the LL between levels in a scratch plane; K3 merges in
-  shared memory on compound-halo windows and keeps every intermediate LL
-  there.  A shared-memory guard falls back to ``"levels"`` execution
-  when a level of K2, or K3 even at the smallest ``2^levels``-aligned
-  block, does not fit (``$REPRO_TORCH_PYRAMID_SMEM_LIMIT`` bytes, default
+  each at the per-level path's block and halo, with the LL between
+  levels in a scratch plane: K2 folds the split into its gather, K3 the
+  merge into its stores.  A shared-memory guard falls back to
+  ``"levels"`` execution when a level of either kernel does not fit
+  (``$REPRO_TORCH_PYRAMID_SMEM_LIMIT`` bytes, default
   :data:`~repro_torch.kernels.tap_window.SMEM_LIMIT`), counted in
   :data:`COUNTERS` and stated in ``plan.fallback``.  On the ``torch``
   backend ``"pyramid"`` runs the per-level chain (bit-identical to
@@ -200,14 +199,14 @@ class LevelSpec:
 class PyramidSpec:
     """Static execution parameters of one fused-pyramid plan."""
 
-    target: Tuple[int, int]           # plane-space block target
-    block: Tuple[int, int]            # image-space block core (bh, bw)
+    block: Tuple[int, int]            # image-space block of level 0: twice
+                                      # its plane tile, for both kernels
     covered_shape: Tuple[int, int]    # image dims covered by whole blocks
     fwd_sched: C.PyramidSchedule
     inv_sched: C.PyramidSchedule
     # the two kernels with one whole-chain program per level (see
-    # pyramid_programs): the inverse at ``block``, the forward at each
-    # level's own block (``fwd_kernel.level_blocks``)
+    # pyramid_programs), both at each level's own plane tile
+    # (``fwd_kernel.level_blocks`` == ``inv_kernel.level_blocks``)
     fwd_kernel: PW.PyramidWindow
     inv_kernel: PW.PyramidWindow
 
@@ -340,55 +339,46 @@ def _resolve_pyramid(key: PlanKey, h: int, w: int,
                      ) -> Tuple[Optional[PyramidSpec], Optional[str]]:
     """Resolve the fused-pyramid kernels of a plan.
 
-    The forward kernel runs each level at the window kernel's block for
-    that level (:func:`~repro_torch.kernels.tap_window.fit_block` of the
+    Both kernels run each level at the window kernel's block for that
+    level (:func:`~repro_torch.kernels.tap_window.fit_block` of the
     level's two programs, as ``fuse="levels"`` picks it) with its own
-    halo: its shared memory is the largest per-level footprint.  The
-    inverse kernel's guard halves both edges of the plane-space block
-    target (down to the ``2^levels`` image-space floor) until its launch
-    fits, and its windows the kernels' row bounds (which the default limit
-    already implies).  Both must fit :func:`pyramid_smem_limit`; where
-    either does not, the plan falls back to ``fuse="levels"`` execution
-    (counted in :data:`COUNTERS`) and says which direction did not
-    fit."""
-    L = key.levels
+    halo: a kernel's shared memory is its largest per-level footprint.
+    Both must fit :func:`pyramid_smem_limit`; where a level of either does
+    not, the plan falls back to ``fuse="levels"`` execution (counted in
+    :data:`COUNTERS`) and says which direction did not fit."""
     fwd_sched, inv_sched, fwd_kprogs, inv_kprogs = pyramid_programs(key)
     limit = pyramid_smem_limit()
-    cdt = key.compute_dtype
-    try:
-        fwd_blocks = tuple(
-            TW.fit_block((fp, ip), h >> (l + 1), w >> (l + 1), limit=limit)
-            for l, (fp, ip) in enumerate(zip(fwd_kprogs, inv_kprogs)))
-    except TW.SmemError as e:
+
+    def fallback(direction: str, why: str):
         count("smem_fallbacks")
-        return None, (f"forward pyramid: a level's {e}; executing as "
+        return None, (f"{direction} pyramid: {why}; executing as "
                       f"fuse='levels'")
-    align = 1 << L
-    target = (int(block_target[0]), int(block_target[1]))
-    floor = max(1, align // 2)      # image-space block floor = 2^levels
-    while True:
-        bh, hp2 = PP._pick_block_aligned(h, 2 * target[0], align)
-        bw, wp2 = PP._pick_block_aligned(w, 2 * target[1], align)
-        need = PW.smem_bytes(inv_kprogs, inv_sched, (bh, bw))
-        if need <= limit and PW.windows_fit(inv_sched, (bh, bw)):
-            return PyramidSpec(
-                target=target, block=(bh, bw), covered_shape=(hp2, wp2),
-                fwd_sched=fwd_sched, inv_sched=inv_sched,
-                fwd_kernel=PW.encode_forward(fwd_kprogs, fwd_sched,
-                                             fwd_blocks, cdt),
-                inv_kernel=PW.encode_inverse(inv_kprogs, inv_sched,
-                                             (bh, bw), cdt)), None
-        smaller = (max(target[0] // 2, floor), max(target[1] // 2, floor))
-        if smaller == target:
-            break
-        target = smaller
-    count("smem_fallbacks")
-    m = inv_sched.margins[1]
-    why = (f"needs {need} B of shared memory > limit {limit} B"
-           if need > limit else "exceeds the kernels' window bounds")
-    return None, (f"inverse pyramid window "
-                  f"{((bh >> 1) + 2 * m, (bw >> 1) + 2 * m)} {why} even at "
-                  f"the minimum block; executing as fuse='levels'")
+
+    blocks = []
+    for l, (fp, ip) in enumerate(zip(fwd_kprogs, inv_kprogs)):
+        hp, wp = h >> (l + 1), w >> (l + 1)
+        try:
+            blocks.append(TW.fit_block((fp, ip), hp, wp, block_target,
+                                       limit))
+        except TW.SmemError as e:
+            try:
+                TW.fit_block((fp,), hp, wp, block_target, limit)
+            except TW.SmemError:
+                return fallback("forward", f"level {l}'s {e}")
+            return fallback("inverse", f"level {l}'s {e}")
+    fwd = PW.encode_forward(fwd_kprogs, fwd_sched, blocks, key.compute_dtype)
+    inv = PW.encode_inverse(inv_kprogs, inv_sched, blocks, key.compute_dtype)
+    for direction, k in (("forward", fwd), ("inverse", inv)):
+        # fit_block prices each program at its own positions per thread;
+        # a kernel walks every level at level 0's (another back pad)
+        if k.smem_bytes > limit:
+            return fallback(direction, f"needs {k.smem_bytes} B of shared "
+                                       f"memory > limit {limit} B")
+    bh, bw = fwd.block
+    return PyramidSpec(
+        block=(bh, bw), covered_shape=(-(-h // bh) * bh, -(-w // bw) * bw),
+        fwd_sched=fwd_sched, inv_sched=inv_sched, fwd_kernel=fwd,
+        inv_kernel=inv), None
 
 
 def build_plan(key: PlanKey) -> DwtPlan:

@@ -8,8 +8,6 @@ model drives the hand-written CUDA window kernel
 * :class:`StepSpec` / :func:`steps_of` — a scheme as barrier-delimited
   ``(pre, main, post)`` matrix triples;
 * :func:`_pick_block` — block edge selection per axis;
-  :func:`_pick_block_aligned` — the same with ``2^levels``-aligned edges,
-  for the fused-pyramid kernels;
 * :func:`scheme_hbm_bytes` — the device-memory traffic model of one
   transform level on this kernel; :func:`pyramid_hbm_bytes` — that of
   one fused-pyramid launch;
@@ -65,26 +63,10 @@ def _pick_block(n: int, target: int) -> Tuple[int, int]:
     return b, -(-n // b) * b
 
 
-def _pick_block_aligned(n: int, target: int, align: int) -> Tuple[int, int]:
-    """Like :func:`_pick_block`, but the block edge must be a multiple of
-    ``align`` (= ``2^levels`` for the fused-pyramid kernels, so every
-    window start is phase-aligned at every pyramid level).  ``n`` itself
-    must already be a multiple of ``align`` (image geometry is validated
-    upstream)."""
-    t = max(align, (min(n, target) // align) * align)
-    d = t
-    while d >= align and n % d:
-        d -= align
-    if d >= align and 2 * d >= t:
-        return d, n
-    return t, -(-n // t) * t
-
-
 def pyramid_out_levels(levels: int) -> List[int]:
     """Fused-pyramid I/O layout: the level of each subband slot, in
     order — coarsest LL first, then (HL, LH, HH) per level finest-first.
-    Shared by the forward/inverse kernels, their plain versions, the
-    shared-memory guard and the bytes model."""
+    Shared by the forward/inverse kernels and their plain versions."""
     return [levels - 1] + [l for l in range(levels) for _ in range(3)]
 
 
@@ -95,51 +77,31 @@ class PyramidBytes(NamedTuple):
     unique: int      # image read (or written) once, every subband once
 
 
-def pyramid_hbm_bytes(sched, shape: Tuple[int, int], itemsize: int,
-                      block, halos: Optional[Sequence[int]] = None
-                      ) -> PyramidBytes:
+def pyramid_hbm_bytes(shape: Tuple[int, int], itemsize: int,
+                      blocks: Sequence[Tuple[int, int]],
+                      halos: Sequence[int]) -> PyramidBytes:
     """Modelled device-memory bytes of one fused-pyramid launch on a
-    (H, W) image, for the direction of ``sched`` (a forward or inverse
-    :class:`~repro_torch.compiler.pyramid.PyramidSchedule`).
+    (H, W) image, either direction: ``blocks`` are the plane-space tiles
+    of each level, ``halos`` each level program's halo.
 
     The port's kernels pad nothing: every window is gathered with mod
-    indexing from the unpadded image, subbands or LL scratch, the blocks
-    cover each axis with a ragged last block, and every store is masked
-    to the true dims.
-
-    * Forward (``block``: the plane-space block of each level, ``halos``:
-      each level program's halo): level ``l`` reads the four
-      ``(bh+2r) x (bw+2r)`` polyphase windows of every tile of its image
-      (the input, or the LL level ``l-1`` wrote), overlap counted, and
-      writes its four outputs once (HL/LH/HH, and LL to the scratch or,
-      at the last level, the LL output): one write and one read of each
-      intermediate LL.
-    * Inverse (``block``: the image-space block): each block reads the
-      coarsest-LL window (margin ``margins[L]``) and each level's three
-      detail windows (margin ``margins[l+1]``), and the image is written
-      once.
+    indexing from the unpadded image, subbands or LL scratch, the tiles
+    cover each axis with a ragged last tile, and every store is masked
+    to the true dims.  Level ``l`` reads the four ``(bh+2r) x (bw+2r)``
+    windows of every tile, overlap counted, and writes its four outputs
+    once: the forward its HL/LH/HH and its LL (to the scratch or, at the
+    last level, the LL output), the inverse the level's interleaved image
+    (to the scratch or, at level 0, the output).  So each intermediate LL
+    is written once and read once (with its halo overlap).
     """
     h, w = shape
-    L = sched.levels
-    image = h * w
-    if sched.kind == "forward":
-        total = 0
-        for l, ((bh, bw), r) in enumerate(zip(block, halos)):
-            hp, wp = h >> (l + 1), w >> (l + 1)
-            tiles = -(-hp // bh) * -(-wp // bw)
-            total += 4 * tiles * (bh + 2 * r) * (bw + 2 * r) + 4 * hp * wp
-        return PyramidBytes(modelled=total * itemsize,
-                            unique=2 * image * itemsize)
-    bh, bw = block
-    blocks = -(-h // bh) * -(-w // bw)
-    reads = 0
-    for k, l in enumerate(pyramid_out_levels(L)):
-        g = sched.margins[L] if k == 0 else sched.margins[l + 1]
-        reads += blocks * ((bh >> (l + 1)) + 2 * g) \
-            * ((bw >> (l + 1)) + 2 * g)
-    # the subbands partition the image: h*w samples in all
-    return PyramidBytes(modelled=(reads + image) * itemsize,
-                        unique=2 * image * itemsize)
+    total = 0
+    for l, ((bh, bw), r) in enumerate(zip(blocks, halos)):
+        hp, wp = h >> (l + 1), w >> (l + 1)
+        tiles = -(-hp // bh) * -(-wp // bw)
+        total += 4 * tiles * (bh + 2 * r) * (bw + 2 * r) + 4 * hp * wp
+    return PyramidBytes(modelled=total * itemsize,
+                        unique=2 * h * w * itemsize)
 
 
 def scheme_hbm_bytes(programs: Sequence, shape: Tuple[int, int],

@@ -14,37 +14,37 @@ What bounds them on an H100: the unique bytes are two passes over the
 image (it is read once, every subband written once, or the reverse); the
 work is the window kernel's table walk.
 
-* K2 (forward) is one cooperative launch of persistent blocks that run
-  the levels in turn and meet at a grid-wide barrier between them.
-  Level ``l`` does the window kernel's work on the four polyphase planes
-  of its image (the input, or the LL level ``l-1`` wrote to a scratch
-  plane), at the block the per-level path picks for that level
-  (:func:`~repro_torch.kernels.tap_window.fit_block`), with only program
-  ``l``'s own halo: the same term evaluations as ``fuse="levels"``,
-  without its split copies and launch gaps.  The split is folded into
-  the gather; LL is stored in the I/O dtype between levels, as the
-  per-level path stores it.
-* K3 (inverse) runs every level of one image-space block in one block,
-  coarsest first, with every intermediate LL plane in shared memory: its
-  windows carry the compound margin of the coarser levels.  Level ``l``
-  runs program ``l`` with its outputs at margin ``sched.shrinks[l]`` in a
-  window of halo ``margins[l+1]`` around the ``(bh >> l+1) x
-  (bw >> l+1)`` core (the interleaved outputs are the next finer level's
-  LL window; at level 0 exactly the block).
+Both kernels are one cooperative launch of persistent blocks that run
+the levels in turn and meet at a grid-wide barrier between them.  Level
+``l`` does the window kernel's work on four ``(B, H>>l+1, W>>l+1)``
+planes, at the block the per-level path picks for that level
+(:func:`~repro_torch.kernels.tap_window.fit_block` of the level's two
+programs) and with only program ``l``'s own halo: the same term
+evaluations as ``fuse="levels"``, without its split and merge copies and
+launch gaps.  The LL between levels goes through a scratch plane in the
+I/O dtype, as the per-level path stores it.
+
+* K2 (forward), finest level first: the four planes are the polyphase
+  split of the level's image (the input, or the LL level ``l-1`` wrote),
+  folded into the gather.
+* K3 (inverse), coarsest level first: the four planes are the LL (the
+  coarsest LL input, or the image level ``l+1`` wrote) and the level's
+  HL, LH, HH; the sink interleaves the four outputs into the level's
+  image (the next level's LL, or the output).
 
 Both walk the window kernel's table format (``csrc/window_common.cuh``),
-one table per level.  Per position the arithmetic is the per-level
-path's left fold over the same terms, and LL is rounded through the I/O
-dtype between levels, so both kernels equal their plain versions (the
-per-level chain of :func:`~repro_torch.kernels.tap_window.window_ref`)
-bit for bit.
+one table per level: K1's table of the level's program at its block.
+Per position the arithmetic is the per-level path's left fold over the
+same terms, and LL is rounded through the I/O dtype between levels, so
+both kernels equal their plain versions (the per-level chain of
+:func:`~repro_torch.kernels.tap_window.window_ref`) bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,99 +60,23 @@ SOURCE = TW.CSRC / "pyramid_window.cu"
 MAX_LEVELS = 8
 
 # table layout, shared with csrc/pyramid_window.cu
-_PYR_HEADER = 8      # levels, level_ints, n_slots, slot_floats, front, back
-_LEVEL_INTS = 4      # offset, then K2: bh, bw, 0; K3: halo, shrink, 0
+_PYR_HEADER = 8      # levels, the largest level table's ints, 0 x 6
+_LEVEL_INTS = 4      # offset, bh, bw, 0
 
 
-@dataclasses.dataclass(frozen=True)
-class LevelWindow:
-    """Where level ``l`` of the inverse kernel works: a ``wh x ww`` plane
-    window of halo ``halo`` around the ``core`` block, outputs at margin
-    ``shrink``."""
-
-    halo: int
-    shrink: int
-    core: Tuple[int, int]
-
-    @property
-    def window(self) -> Tuple[int, int]:
-        return (self.core[0] + 2 * self.halo, self.core[1] + 2 * self.halo)
-
-    @property
-    def out_region(self) -> Tuple[int, int]:
-        wh, ww = self.window
-        return (wh - 2 * self.shrink, ww - 2 * self.shrink)
-
-
-def level_windows(sched: PyramidSchedule, block: Tuple[int, int]
-                  ) -> Tuple[LevelWindow, ...]:
-    """The per-level windows of one inverse launch at the image-space
-    ``block``, finest level first."""
-    if sched.kind != "inverse":
-        raise ValueError("level_windows: the forward kernel's windows are "
-                         "the window kernel's at each level's block")
-    return tuple(LevelWindow(halo=sched.margins[l + 1],
-                             shrink=sched.shrinks[l],
-                             core=(block[0] >> (l + 1), block[1] >> (l + 1)))
-                 for l in range(sched.levels))
-
-
-def carry_floats(sched: PyramidSchedule, block: Tuple[int, int]) -> int:
-    """Floats of the inverse kernel's LL carry: the largest interleaved
-    output a finer level reads."""
-    regions = [w.out_region for w in level_windows(sched, block)[1:]]
-    return max((4 * a * b for a, b in regions), default=0)
-
-
-def windows_fit(sched: PyramidSchedule, block: Tuple[int, int]) -> bool:
-    """True when every inverse level window lies inside the bounds the
-    kernels' row mapping is checked for (:func:`~repro_torch.kernels.
-    tap_window.check_window`)."""
-    return all(w.window[1] <= TW.MAX_WINDOW_WIDTH
-               and w.window[0] * w.window[1] <= TW.MAX_WINDOW_ELEMS
-               for w in level_windows(sched, block))
-
-
-def _inverse_sizes(programs, sched, block):
-    """Per-level layouts (outputs at the level's shrink) of the inverse
-    kernel, its positions per thread (chosen for the largest window, level
-    0's) and its shared-memory layout: (layouts, elems, level_ints,
-    n_slots, slot_floats, front, back)."""
-    lays = [TW.layout(p, s) for p, s in zip(programs, sched.shrinks)]
-    wins = level_windows(sched, block)
-    elems = TW.choose_elems(lays[0], *wins[0].window)
-    pads = [TW.pads(w.halo, w.window[1], elems) for w in wins]
-    return (lays, elems, max(TW.table_ints(lay) for lay in lays),
-            max(lay.n_slots for lay in lays),
-            max(w.window[0] * w.window[1] for w in wins),
-            max(f for f, _ in pads), max(b for _, b in pads))
-
-
-def smem_bytes(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
-               block: Tuple[int, int]) -> int:
-    """Dynamic shared memory of one inverse launch, exactly as the kernel
-    lays it out: the largest level table, the front pad, one input stage
-    and ``n_slots`` slots the size of the largest level window, the back
-    pad and the LL carry."""
-    _, _, level_ints, n_slots, slot, front, back = _inverse_sizes(
-        programs, sched, block)
-    return 4 * ((level_ints + 3) // 4 * 4 + front + (4 + n_slots) * slot
-                + back + carry_floats(sched, block))
-
-
-def forward_elems(programs: Sequence[ir.TapProgram],
-                  blocks: Sequence[Tuple[int, int]]) -> int:
-    """Positions per thread of the forward kernel: those level 0 (the
+def level_elems(programs: Sequence[ir.TapProgram],
+                blocks: Sequence[Tuple[int, int]]) -> int:
+    """Positions per thread of a pyramid kernel's walk: those level 0 (the
     largest) would pick alone."""
     p, (bh, bw) = programs[0], blocks[0]
     return TW.choose_elems(TW.layout(p), bh + 2 * p.halo, bw + 2 * p.halo)
 
 
-def forward_smem_bytes(programs: Sequence[ir.TapProgram],
-                       blocks: Sequence[Tuple[int, int]]) -> int:
-    """Dynamic shared memory of one forward launch: the largest window
+def smem_bytes(programs: Sequence[ir.TapProgram],
+               blocks: Sequence[Tuple[int, int]]) -> int:
+    """Dynamic shared memory of one pyramid launch: the largest window
     kernel footprint of its levels (each at its own block)."""
-    elems = forward_elems(programs, blocks)
+    elems = level_elems(programs, blocks)
     return max(TW.smem_bytes(p, b, elems) for p, b in zip(programs, blocks))
 
 
@@ -162,10 +86,8 @@ class PyramidWindow:
 
     ``table`` is the int32 pyramid table the kernel walks; it is uploaded
     once per device (:meth:`device_table`) and reused by every launch.
-    ``level_blocks`` are the plane-space blocks of each level: the
-    forward kernel's tiles, the inverse kernel's cores.  ``block`` is the
-    image-space block: the inverse kernel's, twice the forward kernel's
-    level-0 tile.
+    ``level_blocks`` are the plane-space tiles of each level; ``block`` is
+    the image-space block of level 0, twice its tile.
     """
 
     kind: str                               # "forward" | "inverse"
@@ -187,26 +109,19 @@ class PyramidWindow:
         return self.sched.levels
 
     def level_tiles(self, shape: Tuple[int, int, int]) -> Tuple[int, ...]:
-        """Forward: tiles of each level over a ``(B, H, W)`` image."""
+        """Tiles of each level over a ``(B, H, W)`` image."""
         nb, h, w = shape
         return tuple(nb * -(-(h >> (l + 1)) // bh) * -(-(w >> (l + 1)) // bw)
                      for l, (bh, bw) in enumerate(self.level_blocks))
 
     def term_evaluations(self, shape: Tuple[int, int, int]) -> int:
         """Term evaluations of one launch over a ``(B, H, W)`` image, all
-        levels (the inverse's window recompute included)."""
-        if self.kind == "forward":
-            return sum(
-                n * TW.walk_terms(p, TW.layout(p), bh + 2 * p.halo,
-                                  bw + 2 * p.halo)
-                for n, p, (bh, bw) in zip(self.level_tiles(shape),
-                                          self.programs, self.level_blocks))
-        nb, h, w = shape
-        blocks = nb * -(-h // self.block[0]) * -(-w // self.block[1])
-        return blocks * sum(
-            TW.walk_terms(p, TW.layout(p, lw.shrink), *lw.window)
-            for p, lw in zip(self.programs,
-                             level_windows(self.sched, self.block)))
+        levels."""
+        return sum(
+            n * TW.walk_terms(p, TW.layout(p), bh + 2 * p.halo,
+                              bw + 2 * p.halo)
+            for n, p, (bh, bw) in zip(self.level_tiles(shape), self.programs,
+                                      self.level_blocks))
 
     def device_table(self, device: torch.device) -> torch.Tensor:
         with self._lock:
@@ -217,82 +132,60 @@ class PyramidWindow:
             return t
 
 
-def _check_encode(programs, levels: int, compute_dtype: str) -> None:
-    if compute_dtype not in TW.COMPUTE_DTYPES:
-        raise ValueError(f"unknown compute_dtype {compute_dtype!r}; "
-                         f"available: {tuple(TW.COMPUTE_DTYPES)}")
-    if not 1 <= levels <= MAX_LEVELS:
-        raise ValueError(f"levels {levels} outside 1..{MAX_LEVELS}")
-    if len(programs) != levels:
-        raise ValueError(f"need {levels} per-level programs, got "
-                         f"{len(programs)}")
-
-
-def _pyramid_table(header, levels, tables) -> np.ndarray:
-    offset = _PYR_HEADER + _LEVEL_INTS * len(tables)
-    rows = []
-    for lv, t in zip(levels, tables):
-        rows += [offset] + list(lv)
-        offset += len(t)
-    table = np.concatenate([np.array(header + rows, np.int32), *tables])
-    table.setflags(write=False)
-    return table
-
-
-def encode_forward(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
-                   blocks: Sequence[Tuple[int, int]],
-                   compute_dtype: str = "float32") -> PyramidWindow:
-    """Encode the forward kernel: level ``l`` walks ``programs[l]`` at the
-    plane-space ``blocks[l]`` with its own halo (see the table layout in
+def _encode(kind: str, programs: Sequence[ir.TapProgram],
+            sched: PyramidSchedule, blocks: Sequence[Tuple[int, int]],
+            compute_dtype: str) -> PyramidWindow:
+    """Level ``l`` walks K1's table of ``programs[l]`` at the plane-space
+    ``blocks[l]`` with its own halo (see the table layout in
     ``csrc/pyramid_window.cu``)."""
     programs = tuple(programs)
     blocks = tuple((int(b[0]), int(b[1])) for b in blocks)
-    _check_encode(programs, sched.levels, compute_dtype)
+    if compute_dtype not in TW.COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}; "
+                         f"available: {tuple(TW.COMPUTE_DTYPES)}")
+    if sched.kind != kind:
+        raise ValueError(f"{sched.kind} schedule passed to the {kind} "
+                         f"encoder")
+    if not 1 <= sched.levels <= MAX_LEVELS:
+        raise ValueError(f"levels {sched.levels} outside 1..{MAX_LEVELS}")
+    if len(programs) != sched.levels:
+        raise ValueError(f"need {sched.levels} per-level programs, got "
+                         f"{len(programs)}")
     if len(blocks) != len(programs):
         raise ValueError(f"need {len(programs)} level blocks, got "
                          f"{len(blocks)}")
-    elems = forward_elems(programs, blocks)
+    elems = level_elems(programs, blocks)
     tables = []
     for prog, (bh, bw) in zip(programs, blocks):
         r = prog.halo
         tables.append(TW.table_rows(prog, TW.layout(prog), bh + 2 * r,
                                     bw + 2 * r, r, compute_dtype, elems))
-    header = [sched.levels, max(len(t) for t in tables), 0, 0, 0, 0, 0, 0]
+    offset = _PYR_HEADER + _LEVEL_INTS * len(tables)
+    rows = [sched.levels, max(len(t) for t in tables)] + [0] * 6
+    for (bh, bw), t in zip(blocks, tables):
+        rows += [offset, bh, bw, 0]
+        offset += len(t)
+    table = np.concatenate([np.array(rows, np.int32), *tables])
+    table.setflags(write=False)
     return PyramidWindow(
-        kind="forward", programs=programs, sched=sched,
+        kind=kind, programs=programs, sched=sched,
         block=(2 * blocks[0][0], 2 * blocks[0][1]), level_blocks=blocks,
-        compute_dtype=compute_dtype,
-        table=_pyramid_table(header, [(bh, bw, 0) for bh, bw in blocks],
-                             tables),
-        smem_bytes=forward_smem_bytes(programs, blocks), elems=elems)
+        compute_dtype=compute_dtype, table=table,
+        smem_bytes=smem_bytes(programs, blocks), elems=elems)
+
+
+def encode_forward(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
+                   blocks: Sequence[Tuple[int, int]],
+                   compute_dtype: str = "float32") -> PyramidWindow:
+    """Encode the forward kernel K2 at the per-level plane ``blocks``."""
+    return _encode("forward", programs, sched, blocks, compute_dtype)
 
 
 def encode_inverse(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
-                   block: Tuple[int, int],
+                   blocks: Sequence[Tuple[int, int]],
                    compute_dtype: str = "float32") -> PyramidWindow:
-    """Encode the inverse kernel for launches at the image-space
-    ``block`` (see the table layout in ``csrc/pyramid_window.cu``)."""
-    programs = tuple(programs)
-    L = sched.levels
-    _check_encode(programs, L, compute_dtype)
-    if any(int(e) <= 0 or int(e) % (1 << L) for e in block):
-        raise ValueError(f"block {tuple(block)} must be positive multiples "
-                         f"of 2^levels = {1 << L}")
-    lays, elems, level_ints, n_slots, slot, front, back = _inverse_sizes(
-        programs, sched, block)
-    wins = level_windows(sched, block)
-    tables = [TW.table_rows(prog, lay, *w.window, w.halo, compute_dtype,
-                            elems)
-              for prog, lay, w in zip(programs, lays, wins)]
-    header = [L, level_ints, n_slots, slot, front, back, 0, 0]
-    return PyramidWindow(
-        kind="inverse", programs=programs, sched=sched,
-        block=(int(block[0]), int(block[1])),
-        level_blocks=tuple(w.core for w in wins),
-        compute_dtype=compute_dtype,
-        table=_pyramid_table(header, [(w.halo, w.shrink, 0) for w in wins],
-                             tables),
-        smem_bytes=smem_bytes(programs, sched, block), elems=elems)
+    """Encode the inverse kernel K3 at the per-level plane ``blocks``."""
+    return _encode("inverse", programs, sched, blocks, compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -301,11 +194,9 @@ def encode_inverse(programs: Sequence[ir.TapProgram], sched: PyramidSchedule,
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pyramid_forward_launch.argtypes = [p, p, p, i, p, i] + [i] * 9 \
-        + [p, p]
-    lib.pyramid_forward_launch.restype = i
-    lib.pyramid_inverse_launch.argtypes = [p, p, i, p] + [i] * 10 + [p, p]
-    lib.pyramid_inverse_launch.restype = i
+    for fn in (lib.pyramid_forward_launch, lib.pyramid_inverse_launch):
+        fn.argtypes = [p, p, p, i, p, i] + [i] * 9 + [p, p]
+        fn.restype = i
 
 
 LIBRARY = TW.KernelLibrary(SOURCE, _bind)
@@ -362,13 +253,6 @@ def _check_inverse(pw: PyramidWindow, subbands) -> Tuple[int, int, int]:
     return nb, h, w
 
 
-def _grid_ok(what: str, pw: PyramidWindow, nb: int, h: int, w: int) -> None:
-    gy, gx = -(-h // pw.block[0]), -(-w // pw.block[1])
-    if nb > 65535 or gy > 65535:
-        raise ValueError(f"{what} grid ({gx}, {gy}, {nb}) exceeds the "
-                         f"launch limits")
-
-
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -377,17 +261,44 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def scratch_planes(pw: PyramidWindow, x: torch.Tensor):
-    """The forward kernel's scratch: the LL plane of every level but the
-    last, in the I/O dtype, from one allocation (``torch.empty``)."""
-    nb, h, w = x.shape
+def scratch_planes(pw: PyramidWindow, image: torch.Tensor):
+    """The kernels' scratch for a ``(B, H, W)`` image: the LL plane of
+    every level but the coarsest, in the I/O dtype, from one allocation
+    (``torch.empty``).  K2 writes level ``l``'s LL to plane ``l``; K3
+    writes level ``l``'s image to plane ``l-1``."""
+    nb, h, w = image.shape
     sizes = [nb * (h >> (l + 1)) * (w >> (l + 1))
              for l in range(pw.levels - 1)]
     if not sizes:
         return []
-    buf = torch.empty(sum(sizes), dtype=x.dtype, device=x.device)
+    buf = torch.empty(sum(sizes), dtype=image.dtype, device=image.device)
     return [t.view(nb, h >> (l + 1), w >> (l + 1))
             for l, t in enumerate(buf.split(sizes))]
+
+
+def _launch(kernel: TW.Kernel, pw: PyramidWindow, image: torch.Tensor,
+            subbands) -> None:
+    """One launch of K2 (``image`` in, ``subbands`` out) or K3 (the
+    reverse); counts it, or raises."""
+    nb, h, w = image.shape
+    tiles = max(pw.level_tiles((nb, h, w)))
+    if tiles >= 2 ** 31:
+        raise ValueError(f"{kernel.name}: {tiles} tiles exceed the "
+                         f"kernel's int32 tile index")
+    launch = getattr(kernel.library(), f"{kernel.name}_launch")
+    dev = image.device
+    scratch = scratch_planes(pw, image)
+    table = pw.device_table(dev)
+    info = (ctypes.c_int * 2)()
+    with torch.cuda.device(dev):
+        err = launch(
+            table.data_ptr(), image.data_ptr(), _pointers(subbands),
+            len(subbands), _pointers(scratch), len(scratch), nb, h, w, tiles,
+            pw.smem_bytes, pw.elems, TW.IO_CODES[image.dtype],
+            int(pw.compute_dtype == "bfloat16"), dev.index, _stream(dev),
+            info)
+    LIBRARY.check(err, kernel.name)
+    kernel.launched(info)
 
 
 def pyramid_forward_ref(pw: PyramidWindow, x: torch.Tensor):
@@ -436,25 +347,9 @@ def pyramid_forward(pw: PyramidWindow, x: torch.Tensor):
     if not x.is_contiguous():
         raise ValueError("pyramid_forward image must be contiguous")
     nb, h, w = x.shape
-    tiles = pw.level_tiles((nb, h, w))
-    if max(tiles) >= 2 ** 31:
-        raise ValueError(f"pyramid_forward: {max(tiles)} tiles exceed the "
-                         f"kernel's int32 tile index")
-    lib = FORWARD.library()
     outs = [torch.empty(s, dtype=x.dtype, device=dev)
             for s in _subband_shapes(pw, nb, h, w)]
-    scratch = scratch_planes(pw, x)
-    table = pw.device_table(dev)
-    info = (ctypes.c_int * 2)()
-    with torch.cuda.device(dev):
-        err = lib.pyramid_forward_launch(
-            table.data_ptr(), x.data_ptr(), _pointers(outs), len(outs),
-            _pointers(scratch), len(scratch), nb, h, w, max(tiles),
-            pw.smem_bytes, pw.elems, TW.IO_CODES[x.dtype],
-            int(pw.compute_dtype == "bfloat16"), dev.index, _stream(dev),
-            info)
-    LIBRARY.check(err, "pyramid_forward")
-    FORWARD.launched(info)
+    _launch(FORWARD, pw, x, outs)
     details = tuple(tuple(outs[1 + 3 * l:4 + 3 * l])
                     for l in range(pw.levels))
     return outs[0], details
@@ -478,19 +373,6 @@ def pyramid_inverse(pw: PyramidWindow, ll: torch.Tensor, details
                          f"got {dev}")
     if not all(t.is_contiguous() for t in subbands):
         raise ValueError("pyramid_inverse subbands must be contiguous")
-    _grid_ok("pyramid_inverse", pw, nb, h, w)
-    lib = INVERSE.library()
     out = torch.empty((nb, h, w), dtype=ll.dtype, device=dev)
-    table = pw.device_table(dev)
-    info = (ctypes.c_int * 2)()
-    with torch.cuda.device(dev):
-        err = lib.pyramid_inverse_launch(
-            table.data_ptr(), _pointers(subbands), len(subbands),
-            out.data_ptr(), nb, h, w, pw.block[0], pw.block[1],
-            pw.smem_bytes, pw.elems, TW.IO_CODES[ll.dtype],
-            int(pw.compute_dtype == "bfloat16"), dev.index, _stream(dev),
-            info)
-    LIBRARY.check(err, "pyramid_inverse")
-    INVERSE.launched(info)
+    _launch(INVERSE, pw, out, subbands)
     return out
-

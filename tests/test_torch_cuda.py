@@ -213,10 +213,10 @@ def test_pyramid_is_one_launch_and_equals_levels(cuda_device, scheme):
 
 
 def test_cooperative_pyramid_on_a_ragged_image(cuda_device):
-    """K2's cooperative launch (every block resident, a grid-wide barrier
-    between levels) at 3 levels on 2 x 256 x 4072, whose level planes are
-    ragged against the tiles; its grid fits the card at once, and K2 and
-    K3 equal their plain versions bit for bit."""
+    """K2's and K3's cooperative launches (every block resident, a
+    grid-wide barrier between levels) at 3 levels on 2 x 256 x 4072, whose
+    level planes are ragged against the tiles; their grids fit the card at
+    once, and both equal their plain versions bit for bit."""
     from repro_torch.kernels import pyramid_window as PW
     fwd, inv = _pyramid_kernels("cdf97", "ns-polyconv", 3, (2, 256, 4072))
     x = torch.randn((2, 256, 4072), generator=torch.Generator()
@@ -230,5 +230,49 @@ def test_cooperative_pyramid_on_a_ragged_image(cuda_device):
     for a, b in zip([ll] + [d for t in det for d in t],
                     [rll] + [d for t in rdet for d in t]):
         assert torch.equal(a, b)
+    assert torch.equal(PW.pyramid_inverse(inv, ll, det),
+                       PW.pyramid_inverse_ref(inv, ll, det))
+    grid, per_sm = PW.INVERSE.last_grid
+    assert 1 <= grid <= min(per_sm * sms,
+                            max(inv.level_tiles(tuple(x.shape))))
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_seven_level_pyramid_kernels_equal_plain_versions(cuda_device,
+                                                          scheme):
+    """Seven levels on 2 x 256 x 384: the coarsest planes (2x3) are far
+    smaller than a tile, so every window wraps; K2 and K3 equal their
+    plain versions bit for bit and round-trip."""
+    from repro_torch.kernels import pyramid_window as PW
+    fwd, inv = _pyramid_kernels("cdf97", scheme, 7, (2, 256, 384))
+    x = torch.randn((2, 256, 384), generator=torch.Generator()
+                    .manual_seed(5)).to(cuda_device)
+    ll, det = PW.pyramid_forward(fwd, x)
+    rll, rdet = PW.pyramid_forward_ref(fwd, x)
+    for a, b in zip([ll] + [d for t in det for d in t],
+                    [rll] + [d for t in rdet for d in t]):
+        assert torch.equal(a, b)
+    rec = PW.pyramid_inverse(inv, ll, det)
+    assert torch.equal(rec, PW.pyramid_inverse_ref(inv, ll, det))
+    torch.testing.assert_close(rec, x, **ROUNDTRIP_TOL)
+
+
+def test_inverse_pyramid_refuses_a_launch_it_cannot_make_cooperative(
+        cuda_device):
+    """A K3 launch whose blocks cannot all be resident (here: more shared
+    memory than a block may have) raises, names the kernel and runs
+    nothing: no quiet fallback to another kernel or the plain version."""
+    import dataclasses
+    from repro_torch.kernels import pyramid_window as PW
+    fwd, inv = _pyramid_kernels("cdf97", "ns-polyconv", 3, (2, 64, 64))
+    x = torch.randn((2, 64, 64), generator=torch.Generator()
+                    .manual_seed(6)).to(cuda_device)
+    ll, det = PW.pyramid_forward(fwd, x)
+    too_big = dataclasses.replace(inv, smem_bytes=TW.SMEM_LIMIT + 1024)
+    before = PW.INVERSE.launches
+    with pytest.raises(RuntimeError,
+                       match="pyramid_inverse launch failed.*cooperative"):
+        PW.pyramid_inverse(too_big, ll, det)
+    assert PW.INVERSE.launches == before
     assert torch.equal(PW.pyramid_inverse(inv, ll, det),
                        PW.pyramid_inverse_ref(inv, ll, det))

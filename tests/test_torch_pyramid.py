@@ -10,13 +10,13 @@ The CUDA kernels K2/K3 themselves run only on the card
   kernels' plain versions) against the reference's Pallas pyramid
   kernels run as its own tests run them (interpret mode), and round trips;
 * the encoded pyramid tables against a NumPy walk of them that mirrors
-  ``csrc/pyramid_window.cu`` block by block — the level-0 gather from the
-  interleaved image, regions at each level's shrink, the LL carry split
-  at stride 2, the interleave, the I/O rounding and the masked ragged
-  edge — bit for bit against the plain versions;
+  ``csrc/pyramid_window.cu`` level by level and tile by tile — K2's
+  gather split at stride 2 from the level's image, K3's interleaving
+  sink, the LL through the I/O dtype between levels and the masked
+  ragged edge — bit for bit against the plain versions;
 * the shared-memory guard and its fallback to ``fuse="levels"``, the
-  launch model, the wrappers' checks, and the float row mapping the
-  kernels share with the window kernel.
+  launch and work model, the wrappers' checks, and the float row mapping
+  the kernels share with the window kernel.
 """
 import dataclasses
 import itertools
@@ -111,9 +111,11 @@ def test_schedules_equal_reference(wavelet, scheme):
 @pytest.mark.parametrize("levels", (1, 3, 5))
 @pytest.mark.parametrize("scheme", ("ns-polyconv", "sep-lifting"))
 def test_plan_schedules_equal_reference_plan(scheme, levels, monkeypatch):
-    """The schedules and the block a cuda plan resolves are the reference
-    pallas plan's at the same plane target, with both budgets lifted (each
-    guard has its own memory)."""
+    """The schedules a cuda plan resolves are the reference pallas plan's,
+    with both budgets lifted (each guard has its own memory).  The blocks
+    are the port's own: both kernels walk each level at the tile the
+    window kernel's guard picks for the level's two programs, and the
+    image-space block is twice the level-0 tile."""
     monkeypatch.setenv(JE.plan.PYRAMID_VMEM_LIMIT_ENV, str(1 << 40))
     monkeypatch.setenv(TPLAN.PYRAMID_SMEM_LIMIT_ENV, str(1 << 40))
     for tap_opt in OPT_LEVELS:
@@ -127,24 +129,20 @@ def test_plan_schedules_equal_reference_plan(scheme, levels, monkeypatch):
                           boundary="periodic", tap_opt=tap_opt)
         tspec, _ = TPLAN._resolve_pyramid(key, 64, 96)
         jspec, _ = JE.plan._resolve_pyramid(jkey, 64, 96, TW.BLOCK_TARGET)
-        if tspec is None:     # past the row bounds even at the floor
-            assert not PW.windows_fit(jspec.inv_sched, jspec.block)
-            continue
         for a, b in ((tspec.fwd_sched, jspec.fwd_sched),
                      (tspec.inv_sched, jspec.inv_sched)):
             assert dataclasses.astuple(a) == dataclasses.astuple(b)
-        if PW.windows_fit(jspec.inv_sched, jspec.block):
-            assert tspec.block == jspec.block
-            assert tspec.covered_shape == jspec.padded_shape
+        _, _, fprogs, iprogs = TPLAN.pyramid_programs(key)
+        tiles = tuple(TW.fit_block((fp, ip), 32 >> l, 48 >> l)
+                      for l, (fp, ip) in enumerate(zip(fprogs, iprogs)))
+        assert tspec.fwd_kernel.level_blocks == \
+            tspec.inv_kernel.level_blocks == tiles
+        bh, bw = tspec.block
+        assert (bh, bw) == (2 * tiles[0][0], 2 * tiles[0][1])
+        assert tspec.covered_shape == (-(-64 // bh) * bh, -(-96 // bw) * bw)
 
 
-def test_pick_block_aligned_and_out_levels_equal_reference():
-    for n, target, align in itertools.product(
-            range(2, 400, 2), (1, 2, 8, 16, 48, 64, 128, 512),
-            (2, 4, 8, 16, 32)):
-        if n % align == 0:
-            assert TPP._pick_block_aligned(n, target, align) == \
-                JPP._pick_block_aligned(n, target, align)
+def test_out_levels_equal_reference():
     for levels in range(1, 9):
         assert TPP.pyramid_out_levels(levels) == \
             JPP.pyramid_out_levels(levels)
@@ -250,12 +248,10 @@ def test_cuda_pyramid_plan_is_one_launch():
     assert plan.pyramid is not None and plan.fallback is None
     assert plan.launches == 1
     spec = plan.pyramid
-    # the forward kernel walks each level at the block fuse="levels" picks
-    assert spec.fwd_kernel.level_blocks == tuple(
-        ls.block for ls in plan.level_specs) == ((32, 32),) * 3
-    # the inverse kernel keeps the (32, 64) plane target: image block
-    # (64, 128), windows carrying the compound margin
-    assert spec.block == (64, 128) and spec.target == (32, 64)
+    # both kernels walk each level at the block fuse="levels" picks
+    assert spec.fwd_kernel.level_blocks == spec.inv_kernel.level_blocks \
+        == tuple(ls.block for ls in plan.level_specs) == ((32, 32),) * 3
+    assert spec.block == (64, 64) and spec.covered_shape == (2048, 2048)
     assert spec.fwd_sched.margins == (32, 12, 4, 0)
     assert spec.inv_sched.margins == (0, 2, 4, 4)
     assert spec.smem_bytes <= TW.SMEM_LIMIT
@@ -279,6 +275,26 @@ def test_forward_pyramid_does_the_work_of_fuse_levels():
     spec = _kernels("cdf97", "ns-polyconv", 3)
     assert spec.fwd_kernel.term_evaluations(shape) == levels == 1098080256
     assert spec.fwd_kernel.level_tiles(shape) == (8192, 2048, 512)
+
+
+def test_inverse_pyramid_does_the_work_of_fuse_levels():
+    """The inverse kernel's term evaluations are those of the per-level
+    path's inverse window kernel launches, exactly: 1,098,080,256 at the
+    main path (the compound-margin design did 1,190,658,048), at the same
+    tiles and the same shared memory as the forward kernel (74,992 B,
+    three blocks per SM)."""
+    shape = (8, 2048, 2048)
+    plan = TE.get_plan(shape=shape, levels=3, scheme="ns-polyconv",
+                       fuse="levels", backend="cuda", device="cpu",
+                       cache=TE.PlanCache())
+    levels = sum(win.term_evaluations((8,) + ls.plane_shape)
+                 for ls in plan.level_specs for win in ls.inv_windows)
+    spec = _kernels("cdf97", "ns-polyconv", 3)
+    inv = spec.inv_kernel
+    assert inv.term_evaluations(shape) == levels == 1098080256
+    assert inv.level_tiles(shape) == (8192, 2048, 512)
+    assert inv.smem_bytes == spec.fwd_kernel.smem_bytes == 74992
+    assert TW.resident_blocks(inv.smem_bytes) == 3
 
 
 def test_smem_guard_falls_back_to_levels(monkeypatch):
@@ -305,18 +321,36 @@ def test_smem_guard_falls_back_to_levels(monkeypatch):
         before["pyramid_kernel_launches"]
 
 
-def test_deep_separable_pyramid_falls_back_at_default_budget():
-    """L=7 cdf97 sep-lifting: the inverse kernel's windows still carry the
-    compound margin, and even at the 128-pixel block floor they overflow
-    shared memory: the plan falls back to fuse="levels" and says which
-    kernel did not fit."""
+def test_deep_separable_pyramid_resolves_at_default_budget():
+    """L=7 cdf97 sep-lifting, which fell back while the inverse kernel's
+    windows carried the compound margin: the inverse kernel now walks
+    each level with its own halo, down to the 2x2 planes of level 6, and
+    the plan is one launch per direction."""
     before = TE.PYRAMID_COUNTERS["smem_fallbacks"]
     plan = TE.get_plan(shape=(1, 256, 256), levels=7, scheme="sep-lifting",
                        fuse="pyramid", backend="cuda", device="cpu",
                        cache=TE.PlanCache())
-    assert plan.pyramid is None and plan.launches == 7
-    assert plan.fallback.startswith("inverse pyramid window")
-    assert TE.PYRAMID_COUNTERS["smem_fallbacks"] == before + 1
+    assert plan.pyramid is not None and plan.fallback is None
+    assert plan.launches == 1
+    assert plan.pyramid.inv_kernel.level_tiles((1, 256, 256))[-1] == 1
+    assert plan.pyramid.smem_bytes <= TW.SMEM_LIMIT
+    assert TE.PYRAMID_COUNTERS["smem_fallbacks"] == before
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("wavelet", WAVELETS)
+def test_seven_level_pyramids_resolve_at_default_budget(wavelet, scheme):
+    """Every wavelet x scheme x tap_opt at seven levels (256x256) resolves
+    to one launch per direction: no level of either kernel overflows the
+    default shared-memory budget."""
+    for tap_opt in OPT_LEVELS:
+        key = TE.PlanKey(wavelet=wavelet, scheme=scheme, levels=7,
+                         shape=(1, 256, 256), dtype="float32",
+                         backend="cuda", optimize=False, fuse="pyramid",
+                         boundary="periodic", tap_opt=tap_opt, device="cpu")
+        spec, why = TPLAN._resolve_pyramid(key, 256, 256)
+        assert spec is not None, (tap_opt, why)
+        assert spec.smem_bytes <= TW.SMEM_LIMIT
 
 
 def test_five_level_separable_pyramid_now_fits():
@@ -345,6 +379,30 @@ def test_forward_guard_names_the_forward_kernel(monkeypatch):
     assert plan.fallback.startswith("forward pyramid")
 
 
+def test_inverse_guard_names_the_inverse_kernel(monkeypatch):
+    """A budget between the two kernels' smallest level footprints (the
+    optimized cdf97 ns-polyconv forward program needs 9,008 B at the 8x8
+    tile, its inverse 9,840 B): only the inverse kernel does not fit; the
+    plan falls back to fuse="levels", names the inverse, counts it and
+    computes exactly what fuse="levels" computes."""
+    monkeypatch.setenv(TPLAN.PYRAMID_SMEM_LIMIT_ENV, "9500")
+    before = TE.PYRAMID_COUNTERS["smem_fallbacks"]
+    key = TE.PlanKey(wavelet="cdf97", scheme="ns-polyconv", levels=2,
+                     shape=(2, 32, 48), dtype="float32", backend="cuda",
+                     optimize=True, fuse="pyramid", boundary="periodic",
+                     device="cpu")
+    plan = TE.build_plan(key)
+    assert plan.pyramid is None and plan.launches == 2
+    assert plan.fallback.startswith("inverse pyramid: level 0's")
+    assert plan.fallback.endswith("executing as fuse='levels'")
+    assert TE.PYRAMID_COUNTERS["smem_fallbacks"] == before + 1
+    x = torch.from_numpy(_image((2, 32, 48), seed=10))
+    pyr = plan.execute(x)
+    want = R.idwt2(pyr, fuse="levels", device="cpu")
+    np.testing.assert_array_equal(plan.execute_inverse(pyr).numpy(),
+                                  want.numpy())
+
+
 def test_pyramid_counter_counts_executions():
     before = TE.PYRAMID_COUNTERS["pyramid_kernel_launches"]
     x = torch.from_numpy(_image((16, 16), seed=9))
@@ -355,48 +413,40 @@ def test_pyramid_counter_counts_executions():
 
 @pytest.mark.parametrize("levels", (1, 2, 3, 4))
 def test_smem_bytes_is_what_the_kernel_lays_out(levels):
-    """The guard's sizes.  Forward: the largest window kernel footprint of
-    its levels, each from its own table header.  Inverse: the largest
-    level table, the front pad, one input stage and n_slots slots of the
-    largest level window, the back pad and the LL carry, from the pyramid
-    header."""
+    """The guard's sizes, for both kernels: the largest window kernel
+    footprint of their levels, each from its own table header (table,
+    front pad, four input windows and the slots at the level's tile, back
+    pad), and the pyramid header's largest level table."""
     spec = _kernels("cdf53", "ns-polyconv", levels)
-    fwd, inv = spec.fwd_kernel, spec.inv_kernel
-    assert int(fwd.table[0]) == int(inv.table[0]) == levels
-    need = []
-    for (tab, _, _), (bh, bw) in zip(_levels_of(fwd), fwd.level_blocks):
-        n_slots, halo, wh, ww, front, back = (int(v) for v in tab[4:10])
-        assert (wh, ww) == (bh + 2 * halo, bw + 2 * halo)
-        need.append(4 * (-(-len(tab) // 4) * 4 + front
-                         + (4 + n_slots) * wh * ww + back))
-    assert fwd.smem_bytes == max(need)
-    L, level_ints, n_slots, slot, front, back = (int(v)
-                                                 for v in inv.table[:6])
-    wins = PW.level_windows(inv.sched, inv.block)
-    assert slot == max(a * b for a, b in (w.window for w in wins))
-    assert level_ints == max(len(t) for t, _, _ in _levels_of(inv))
-    carry = PW.carry_floats(inv.sched, inv.block)
-    assert inv.smem_bytes == 4 * ((level_ints + 3) // 4 * 4 + front
-                                  + (4 + n_slots) * slot + back + carry)
-    if levels > 1:
-        assert carry == max(4 * a * b for a, b in
-                            (w.out_region for w in wins[1:]))
+    for pw in (spec.fwd_kernel, spec.inv_kernel):
+        assert int(pw.table[0]) == levels
+        need = []
+        for (tab, bh, bw), blk in zip(_levels_of(pw), pw.level_blocks):
+            n_slots, halo, wh, ww, front, back, elems = (
+                int(v) for v in tab[4:11])
+            assert (bh, bw) == blk and elems == pw.elems
+            assert (wh, ww) == (bh + 2 * halo, bw + 2 * halo)
+            need.append(4 * (-(-len(tab) // 4) * 4 + front
+                             + (4 + n_slots) * wh * ww + back))
+        assert pw.smem_bytes == max(need)
+        assert int(pw.table[1]) == max(len(t) for t, _, _ in _levels_of(pw))
 
 
 def test_hbm_model_of_the_main_path():
-    """Forward: every level's four windows with their halo overlap, every
-    output (intermediate LL included) written once; inverse: the
-    compound-margin windows of its blocks, the image written once."""
+    """Both directions: every level's four windows with their halo
+    overlap, every output written once (the forward's subbands and LL,
+    the inverse's interleaved image), so each intermediate LL is written
+    once and read once."""
     spec = _kernels("cdf97", "ns-polyconv", 3)
-    fwd = TPP.pyramid_hbm_bytes(spec.fwd_sched, (2048, 2048), 4,
-                                spec.fwd_kernel.level_blocks,
-                                halos=(2, 2, 2))
-    inv = TPP.pyramid_hbm_bytes(spec.inv_sched, (2048, 2048), 4, (64, 128))
+    fwd, inv = (TPP.pyramid_hbm_bytes((2048, 2048), 4, pw.level_blocks,
+                                      [p.halo for p in pw.programs])
+                for pw in (spec.fwd_kernel, spec.inv_kernel))
     assert fwd.unique == inv.unique == 2 * 2048 * 2048 * 4
     reads = sum(4 * ((1024 >> l) // 32) ** 2 * 36 * 36 for l in range(3))
     writes = sum(4 * (1024 >> l) ** 2 for l in range(3))
-    assert fwd.modelled == (reads + writes) * 4
-    assert inv.modelled > inv.unique and fwd.modelled > inv.modelled
+    assert fwd.modelled == inv.modelled == (reads + writes) * 4
+    # the intermediate LLs' write and read: 1.33x the unique bytes here
+    assert inv.modelled > inv.unique
 
 
 # ---------------------------------------------------------------------------
@@ -417,8 +467,8 @@ _ROUND_IO = {torch.float32: lambda a: a,
 
 
 def _levels_of(pw):
-    """(table, a, b) per level: the level's window table and the two
-    level ints after its offset (forward: bh, bw; inverse: halo, shrink)."""
+    """(table, bh, bw) per level: the level's window table and its plane
+    tile."""
     L = int(pw.table[0])
     out = []
     for l in range(L):
@@ -478,7 +528,14 @@ def emulate_forward(pw, x, io=torch.float32):
 
 
 def emulate_inverse(pw, subbands, io=torch.float32):
-    """NumPy walk of K3 over every block: ``subbands`` float32 in
+    """NumPy walk of K3: level by level from the coarsest, every tile of
+    the level's plane grid gathers its four windows (the LL, the input at
+    the coarsest level and then the image the level before wrote, and the
+    level's HL, LH, HH), mod the plane dims, walks the level table
+    (:func:`walk_table`), and the interleaving sink writes output ``k`` at
+    plane position (i, j) of the core to pixel (2i + (k >> 1), 2j + (k &
+    1)) of the level's image, rounded through the I/O dtype ``io`` (the
+    scratch, or at level 0 the output).  ``subbands`` float32 in
     pyramid_out_levels order; returns the (B, H, W) image."""
     rnd = _bf16 if pw.compute_dtype == "bfloat16" else (lambda a: a)
     rio = _ROUND_IO[io]
@@ -486,60 +543,46 @@ def emulate_inverse(pw, subbands, io=torch.float32):
     L = len(levels)
     nb = subbands[0].shape[0]
     h, w = subbands[0].shape[1] << L, subbands[0].shape[2] << L
-    bh, bw = pw.block
-    out = np.full((nb, h, w), np.nan, np.float32)
-    for by, bx in itertools.product(range(-(-h // bh)), range(-(-w // bw))):
-        carry = None
-        for l in range(L - 1, -1, -1):
-            tab, r, s = levels[l]
-            assert int(tab[5]) == r
-            core = (bh >> (l + 1), bw >> (l + 1))
-            wh, ww = core[0] + 2 * r, core[1] + 2 * r
-            hs, ws = h >> (l + 1), w >> (l + 1)
-            rows = (by * core[0] - r + np.arange(wh)) % hs
-            cols = (bx * core[1] - r + np.arange(ww)) % ws
-            ll = subbands[0] if carry is None else None
-            inputs = [p[:, rows][:, :, cols] for p in
-                      [ll] + list(subbands[1 + 3 * l:4 + 3 * l]) if
-                      p is not None]
-            if carry is not None:
-                assert carry.shape == (nb, wh, ww)
-                assert not np.isnan(carry).any()
-                inputs.insert(0, carry)
-            new = np.full((nb, 2 * (wh - 2 * s), 2 * (ww - 2 * s)), np.nan,
-                          np.float32)
+    ll = subbands[0]
+    for l in range(L - 1, -1, -1):
+        tab, bh, bw = levels[l]
+        r, wh, ww = (int(v) for v in tab[5:8])
+        assert (wh, ww) == (bh + 2 * r, bw + 2 * r)
+        hp, wp = h >> (l + 1), w >> (l + 1)
+        img = np.full((nb, 2 * hp, 2 * wp), np.nan, np.float32)
+        planes = [ll] + list(subbands[1 + 3 * l:4 + 3 * l])
+        for y0, x0 in itertools.product(range(0, hp, bh), range(0, wp, bw)):
+            rows = (y0 - r + np.arange(wh)) % hp
+            cols = (x0 - r + np.arange(ww)) % wp
+            inputs = [p[:, rows][:, :, cols] for p in planes]
 
-            def sink(mask, q, vals, s=s, wh=wh, ww=ww, new=new, l=l):
-                y, x = q // ww, q % ww
-                keep = (y >= s) & (y < wh - s) & (x >= s) & (x < ww - s)
-                iy, ix = 2 * (y[keep] - s), 2 * (x[keep] - s)
-                v = vals[:, keep]
+            def sink(mask, q, vals, y0=y0, x0=x0):
+                y, xx = q // ww, q % ww
+                gy, gx = y0 + y - r, x0 + xx - r
+                keep = ((y >= r) & (y < r + bh) & (xx >= r) & (xx < r + bw)
+                        & (gy < hp) & (gx < wp))
                 for k in range(4):
                     if mask >> k & 1:
-                        new[:, iy + (k >> 1), ix + (k & 1)] = \
-                            rnd(rio(v)) if l > 0 else v
+                        img[:, 2 * gy[keep] + (k >> 1),
+                            2 * gx[keep] + (k & 1)] = rio(vals[:, keep])
             walk_table(tab, nb, inputs, sink, rnd)
-            carry = new
-        assert carry.shape == (nb, bh, bw) and not np.isnan(carry).any()
-        ry = np.arange(by * bh, min(by * bh + bh, h))
-        rx = np.arange(bx * bw, min(bx * bw + bw, w))
-        out[:, ry[:, None], rx[None, :]] = \
-            rio(carry[:, :len(ry), :len(rx)])
-    return out
+        assert not np.isnan(img).any()
+        ll = img
+    return ll
 
 
-def _emulation_case(wavelet, scheme, levels, tap_opt, block, shape,
+def _emulation_case(wavelet, scheme, levels, tap_opt, inv_block, shape,
                     io=torch.float32, compute="float32", seed=0,
                     fwd_block=(4, 8)):
-    """K2 at the plane block ``fwd_block`` on every level, K3 at the
-    image-space ``block``, against their plain versions bit for bit."""
+    """K2 at the plane tile ``fwd_block`` and K3 at ``inv_block`` on every
+    level, against their plain versions bit for bit."""
     key = TE.PlanKey(wavelet=wavelet, scheme=scheme, levels=levels,
                      shape=shape, dtype="float32", backend="cuda",
                      optimize=False, fuse="pyramid", boundary="periodic",
                      tap_opt=tap_opt, device="cpu")
     fs, isch, fprogs, iprogs = TPLAN.pyramid_programs(key)
     fwd = PW.encode_forward(fprogs, fs, [fwd_block] * levels, compute)
-    inv = PW.encode_inverse(iprogs, isch, block, compute)
+    inv = PW.encode_inverse(iprogs, isch, [inv_block] * levels, compute)
     x = torch.from_numpy(_image(shape, seed=seed)).to(io)
     ll, details = PW.pyramid_forward_ref(fwd, x)
     want = [ll] + [d for det in details for d in det]
@@ -554,11 +597,12 @@ def _emulation_case(wavelet, scheme, levels, tap_opt, block, shape,
 @pytest.mark.parametrize("scheme", SCHEMES)
 @pytest.mark.parametrize("wavelet", WAVELETS)
 def test_encoded_pyramid_tables_match_plain_versions(wavelet, scheme):
-    """Ragged multi-block images (edge blocks past the image, wrap on
-    every side) at levels 1-3, tap_opt full and off."""
+    """Ragged multi-tile planes (edge tiles past the plane, wrap on every
+    side; at three levels the coarsest 5x7 planes are smaller than a
+    tile) at levels 1-3, tap_opt full and off."""
     for levels, tap_opt in itertools.product((1, 2, 3), ("full", "off")):
-        block = (8, 16) if levels < 3 else (16, 16)
-        _emulation_case(wavelet, scheme, levels, tap_opt, block,
+        inv_block = (4, 8) if levels < 3 else (8, 8)
+        _emulation_case(wavelet, scheme, levels, tap_opt, inv_block,
                         (2, 40, 56), seed=levels)
 
 
@@ -570,15 +614,15 @@ def test_encoded_pyramid_tables_narrow_types(io, compute):
     """Half-precision I/O rounds LL through the I/O dtype between levels;
     bfloat16 compute rounds every product and sum."""
     for scheme in ("ns-polyconv", "sep-lifting"):
-        _emulation_case("cdf97", scheme, 3, "full", (16, 32), (2, 48, 72),
+        _emulation_case("cdf97", scheme, 3, "full", (8, 16), (2, 48, 72),
                         io=io, compute=compute, seed=11)
 
 
 def test_encoded_pyramid_main_path_block():
-    """The main path's blocks and programs (K2 at the (32, 32) plane tile
-    of every level, K3 at the (64, 128) image block) on a 1x128x320 image
-    (several blocks, one ragged column of blocks)."""
-    _emulation_case("cdf97", "ns-polyconv", 3, "full", (64, 128),
+    """The main path's tiles and programs (both kernels at the (32, 32)
+    plane tile of every level) on a 1x128x320 image (several tiles, one
+    ragged column of tiles at every level)."""
+    _emulation_case("cdf97", "ns-polyconv", 3, "full", (32, 32),
                     (1, 128, 320), seed=12, fwd_block=(32, 32))
 
 
@@ -604,10 +648,13 @@ def test_wrappers_check_and_cpu_path_does_not_count():
         PW.pyramid_forward(inv, x)
     with pytest.raises(ValueError, match="pyramid_inverse takes"):
         PW.pyramid_inverse(inv, ll, det[::-1])
-    with pytest.raises(ValueError, match="multiples of 2\\^levels"):
-        PW.encode_inverse(inv.programs, inv.sched, (6, 16))
+    with pytest.raises(ValueError, match="level blocks"):
+        PW.encode_inverse(inv.programs, inv.sched, inv.level_blocks[:1])
+    with pytest.raises(ValueError, match="forward schedule"):
+        PW.encode_inverse(inv.programs, fwd.sched, inv.level_blocks)
     with pytest.raises(ValueError, match="unknown compute_dtype"):
-        PW.encode_inverse(inv.programs, inv.sched, (8, 8), "float16")
+        PW.encode_inverse(inv.programs, inv.sched, inv.level_blocks,
+                          "float16")
     with pytest.raises(ValueError, match="unknown compute_dtype"):
         PW.encode_forward(fwd.programs, fwd.sched, fwd.level_blocks,
                           "float16")
@@ -643,10 +690,9 @@ def test_guards_keep_windows_inside_the_row_bounds():
         spec = _kernels("dd137", s, levels)
         if spec is None:
             continue
-        fwd, inv = spec.fwd_kernel, spec.inv_kernel
-        windows = [w.window for w in PW.level_windows(inv.sched, inv.block)]
-        windows += [(bh + 2 * p.halo, bw + 2 * p.halo) for p, (bh, bw) in
-                    zip(fwd.programs, fwd.level_blocks)]
+        windows = [(bh + 2 * p.halo, bw + 2 * p.halo)
+                   for pw in (spec.fwd_kernel, spec.inv_kernel)
+                   for p, (bh, bw) in zip(pw.programs, pw.level_blocks)]
         for wh, ww in windows:
             assert ww <= TW.MAX_WINDOW_WIDTH
             assert wh * ww <= TW.MAX_WINDOW_ELEMS
@@ -657,7 +703,7 @@ def test_guards_keep_windows_inside_the_row_bounds():
     spec = _kernels("cdf97", "ns-polyconv", 1)
     with pytest.raises(ValueError, match="exceeds the kernels' bounds"):
         PW.encode_inverse(spec.inv_kernel.programs, spec.inv_sched,
-                          (8, 2048))
+                          [(4, 1024)])
     with pytest.raises(ValueError, match="exceeds the kernels' bounds"):
         PW.encode_forward(spec.fwd_kernel.programs, spec.fwd_sched,
                           [(4, 1024)])
@@ -665,12 +711,11 @@ def test_guards_keep_windows_inside_the_row_bounds():
 
 @pytest.mark.parametrize("scheme", ("ns-polyconv", "sep-lifting"))
 def test_one_level_pyramid_does_the_window_kernels_work(scheme):
-    """At one level the forward pyramid's window is K1's: the same term
+    """At one level each pyramid kernel's window is K1's: the same term
     evaluations per image at its plane block, and the same table."""
     spec = _kernels("cdf97", scheme, 1)
-    prog = spec.fwd_kernel.programs[0]
-    win = TW.encode(prog, spec.fwd_kernel.level_blocks[0])
-    assert spec.fwd_kernel.term_evaluations((2, 256, 512)) == \
-        win.term_evaluations((2, 128, 256))
-    np.testing.assert_array_equal(_levels_of(spec.fwd_kernel)[0][0],
-                                  win.table)
+    for pw in (spec.fwd_kernel, spec.inv_kernel):
+        win = TW.encode(pw.programs[0], pw.level_blocks[0])
+        assert pw.term_evaluations((2, 256, 512)) == \
+            win.term_evaluations((2, 128, 256))
+        np.testing.assert_array_equal(_levels_of(pw)[0][0], win.table)
