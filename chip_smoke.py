@@ -36,6 +36,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
              a budget below one level's window
              ($REPRO_TORCH_PYRAMID_SMEM_LIMIT) must fall back to
              "levels", counted, and compute what "levels" computes;
+3c. workloads — packets, 3-D and the conv backend, each path with every
+             counter at 0, cdf97, float32: ``wpt2``/``iwpt2`` of
+             "full:2" at B=8, 2048x2048 (ns-polyconv, backend "cuda",
+             fuse "none" and "levels": 10 and 5 K1 launches per
+             transform); ``dwt3``/``idwt3`` of a 1x64x1024x1024 volume at
+             3 levels (12 and 6; ``plan.fallback`` names the unfused
+             temporal pass); ``dwt2``/``idwt2`` of the main path on
+             backend "conv" (ns-polyconv "none" and "levels",
+             sep-lifting "none": 6, 3 and 24 ``F.conv2d`` calls), run
+             before phase 4 turns TF32 off and checked to leave cuDNN's
+             TF32 setting as it found it.  Results within CROSS_TOL of
+             backend "torch", round trips within ROUNDTRIP_TOL;
+             ``wpt2(packet="dwt:3")`` equal to ``dwt2(levels=3)`` bit for
+             bit; ``best_basis`` (depth 2, shannon) the same tree on
+             "cuda" and "torch", and that tree round-trips.  Times
+             (median of 5) beside backend "torch" (and, for the conv
+             path, "cuda"), ``temporal_forward`` alone at level 0, and
+             K1's launches per path;
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
@@ -90,6 +108,12 @@ EXPECTED_LAUNCHES = {("ns-polyconv", "none"): 6,
                      ("sep-lifting", "none"): 24,
                      ("ns-polyconv", "levels"): 3,
                      ("ns-polyconv", "pyramid"): 1}
+# phase 3c: packets on the main path's images, a 64-frame 1024^2 volume
+PACKET_LAUNCHES = {"none": 10, "levels": 5}      # full:2, 5 nodes
+VOLUME = dict(shape=(1, 64, 1024, 1024), levels=3)
+DWT3_LAUNCHES = {"none": 12, "levels": 6}        # 2 half-bands per level
+CONV_LAUNCHES = {("ns-polyconv", "none"): 6, ("ns-polyconv", "levels"): 3,
+                 ("sep-lifting", "none"): 24}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 REPS = 7
@@ -480,6 +504,227 @@ def phase_deep(torch, R, PW, device, gen):
     print(f"fallback: {plan.fallback}")
 
 
+def _flat(out):
+    """Every tensor of a Pyramid / Pyramid3 / WaveletPacket2D, in order."""
+    if hasattr(out, "leaves"):
+        return list(out.leaves)
+    return [out.ll] + [d for det in out.details for d in det]
+
+
+def _cudnn_tf32(torch):
+    """cuDNN's TF32 settings, both APIs where this PyTorch has both."""
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    return (torch.backends.cudnn.allow_tf32,
+            getattr(conv, "fp32_precision", None))
+
+
+def phase_workloads(torch, R, TW, PW, CV, device, cpu, gen, x, timer):
+    """Packets, 3-D and the conv backend (phase 3c); returns K1's
+    launches summed over the packet and 3-D paths."""
+    print("== phase 3c: packets, 3-D and the conv backend", flush=True)
+    from repro_torch.compiler import temporal as TP
+    wav = MAIN["wavelet"]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
+    counters = kernels(TW, PW)
+    per_path = {}
+
+    def counted(name, run_fwd, run_inv, plan):
+        """Run one path forward then inverse with every counter at 0;
+        check K1's launches against ``plan.launches``."""
+        for k in counters.values():
+            k.launches = 0
+        out = run_fwd()
+        n_fwd = TW.KERNEL.launches
+        rec = run_inv(out)
+        sync()
+        n_all = TW.KERNEL.launches
+        if device.type == "cuda":
+            others = {n: k.launches for n, k in counters.items()
+                      if n != "tap_window"}
+            check(n_fwd == plan.launches and n_all == 2 * plan.launches
+                  and not any(others.values()),
+                  f"{name}: counted {n_fwd} forward / {n_all - n_fwd} "
+                  f"inverse K1 launches (others {others}), plan says "
+                  f"{plan.launches}")
+        per_path[name] = n_all
+        return out, rec
+
+    def held(name, out, ref, rec, orig):
+        got, want = _flat(out), _flat(ref)
+        check([tuple(a.shape) for a in got] == [tuple(b.shape) for b in want]
+              and all(bool(torch.isfinite(a).all()) for a in got),
+              f"{name}: shapes or finiteness")
+        cross = max(max_abs(a, b) for a, b in zip(got, want))
+        check(all(rel_violation(a, b, **CROSS_TOL["float32"]) <= 0
+                  for a, b in zip(got, want)),
+              f"{name}: vs torch backend off by {cross}")
+        rt = max_abs(rec, orig)
+        check(rel_violation(rec, orig, **ROUNDTRIP_TOL["float32"]) <= 0,
+              f"{name}: round trip off by {rt}")
+        print(f"{name}: vs torch backend max |diff| {cross!r}; round trip "
+              f"max |diff| {rt!r}")
+
+    # -- wavelet packets on the main path's images ----------------------
+    b, n = (2, 64) if cpu else (MAIN["batch"], MAIN["size"])
+    xp = torch.randn((b, n, n), generator=gen).to(device)
+    kw = dict(wavelet=wav, scheme="ns-polyconv", device=device)
+    for fuse in ("none", "levels"):
+        plan = R.get_plan(shape=tuple(xp.shape), packet="full:2", fuse=fuse,
+                          backend="cuda", **kw)
+        check(plan.launches == PACKET_LAUNCHES[fuse],
+              f"packets/{fuse}: plan.launches {plan.launches}")
+        pk, rec = counted(
+            f"wpt2/iwpt2 full:2 {fuse}",
+            lambda: R.wpt2(xp, packet="full:2", fuse=fuse, backend="cuda",
+                           **kw),
+            lambda out: R.iwpt2(out, fuse=fuse, backend="cuda", **kw), plan)
+        held(f"wpt2 full:2 {fuse}", pk,
+             R.wpt2(xp, packet="full:2", fuse=fuse, backend="torch", **kw),
+             rec, xp)
+        del pk, rec
+    pk = R.wpt2(xp, packet="dwt:3", fuse="levels", backend="cuda", **kw)
+    pyr = R.dwt2(xp, levels=3, fuse="levels", backend="cuda", **kw)
+    want = [pyr.ll] + [d for det in pyr.details for d in det]  # coarsest first
+    got = [pk[p] for p in ("aaa", "aah", "aav", "aad", "ah", "av", "ad",
+                           "h", "v", "d")]
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "wpt2(packet='dwt:3') differs from dwt2(levels=3)")
+    print("wpt2(packet='dwt:3') equals dwt2(levels=3) bit for bit")
+    del pk, pyr, want, got
+    trees = {be: R.best_basis(xp, depth=2, cost="shannon", backend=be,
+                              **kw) for be in ("cuda", "torch")}
+    check(trees["cuda"] == trees["torch"],
+          f"best_basis differs: cuda {trees['cuda'].leaves}, torch "
+          f"{trees['torch'].leaves}")
+    pk = R.wpt2(xp, packet=trees["cuda"], backend="cuda", **kw)
+    rec = R.iwpt2(pk, backend="cuda", **kw)
+    check(rel_violation(rec, xp, **ROUNDTRIP_TOL["float32"]) <= 0,
+          f"best-basis round trip off by {max_abs(rec, xp)}")
+    print(f"best_basis (depth 2, shannon): the same {len(trees['cuda'])} "
+          f"leaves on cuda and torch {trees['cuda'].leaves}; round trip "
+          f"max |diff| {max_abs(rec, xp)!r}")
+    del pk, rec
+
+    # -- the t+2D volume ------------------------------------------------
+    shape3 = (1, 16, 32, 32) if cpu else VOLUME["shape"]
+    L3 = VOLUME["levels"]
+    vol = torch.randn(shape3, generator=gen).to(device)
+    kw3 = dict(wavelet=wav, scheme="ns-polyconv", levels=L3, device=device)
+    for fuse in ("none", "levels"):
+        plan = R.get_plan(shape=shape3, ndim=3, fuse=fuse, backend="cuda",
+                          **kw3)
+        check(plan.launches == DWT3_LAUNCHES[fuse],
+              f"dwt3/{fuse}: plan.launches {plan.launches}")
+        if fuse == "levels":
+            check("temporal pass runs unfused" in (plan.fallback or ""),
+                  f"dwt3/levels fallback: {plan.fallback}")
+            print(f"dwt3/levels fallback: {plan.fallback}")
+        p3, rec = counted(
+            f"dwt3/idwt3 {fuse}",
+            lambda: R.dwt3(vol, fuse=fuse, backend="cuda", **kw3),
+            lambda out: R.idwt3(out, fuse=fuse, backend="cuda",
+                                wavelet=wav, device=device), plan)
+        check(len(p3.details) == L3 and all(len(d) == 7 for d in p3.details),
+              "dwt3: 7 subbands per level")
+        held(f"dwt3 {fuse}", p3, R.dwt3(vol, fuse=fuse, backend="torch",
+                                        **kw3), rec, vol)
+        del p3, rec
+
+    # -- the conv backend on the main path, TF32 left as found ----------
+    tf32 = _cudnn_tf32(torch)
+    print(f"cuDNN TF32 as found: allow_tf32={tf32[0]}, "
+          f"conv.fp32_precision={tf32[1]!r}; the conv backend pins full "
+          f"fp32 around its calls")
+    conv_calls = {}
+    kwc = dict(wavelet=wav, levels=MAIN["levels"], device=device)
+    for (scheme, fuse), want_n in CONV_LAUNCHES.items():
+        plan = R.get_plan(shape=tuple(x.shape), scheme=scheme, fuse=fuse,
+                          backend="conv", **kwc)
+        check(plan.launches == want_n,
+              f"conv {scheme}/{fuse}: plan.launches {plan.launches}")
+        CV.CONV2D.launches = 0
+        pyr = R.dwt2(x, scheme=scheme, fuse=fuse, backend="conv", **kwc)
+        n_fwd = CV.CONV2D.launches
+        rec = R.idwt2(pyr, scheme=scheme, fuse=fuse, backend="conv",
+                      wavelet=wav, device=device)
+        sync()
+        n_all = CV.CONV2D.launches
+        check(n_fwd == want_n and n_all == 2 * want_n,
+              f"conv {scheme}/{fuse}: counted {n_fwd} forward / "
+              f"{n_all - n_fwd} inverse F.conv2d calls, plan says {want_n}")
+        conv_calls[f"{scheme}/{fuse}"] = n_all
+        held(f"conv {scheme}/{fuse}", pyr,
+             R.dwt2(x, scheme=scheme, fuse=fuse, backend="torch", **kwc),
+             rec, x)
+        del pyr, rec
+    check(_cudnn_tf32(torch) == tf32,
+          f"the conv backend changed cuDNN's TF32 setting: {tf32} -> "
+          f"{_cudnn_tf32(torch)}")
+    # what the pin guards against: the fused level-0 conv as cuDNN runs
+    # it under the setting as found, beside the same conv at full fp32
+    import torch.nn.functional as F
+    from repro_torch.core.schemes import to_planes
+    prog = R.get_plan(shape=tuple(x.shape), scheme="ns-polyconv",
+                      fuse="levels", backend="conv",
+                      **kwc).level_specs[0].fwd_programs[0]
+    rn, rm = CV.lower_program_to_conv(prog).pad
+    xs = CV._wrap_pad(torch.stack(to_planes(x), dim=-3), rn, rm).contiguous()
+    w = CV._weights(prog, torch.float32, x.device)
+    as_found = F.conv2d(xs, w)
+    with CV.full_fp32():
+        pinned = F.conv2d(xs, w)
+    print(f"fused level-0 conv under the TF32 setting as found vs full "
+          f"fp32: max |diff| {max_abs(as_found, pinned)!r}")
+    del xs, as_found, pinned
+    print(f"conv path F.conv2d calls (forward + inverse): {conv_calls}")
+    print(f"K1 launches per path (forward + inverse): {per_path}")
+
+    # -- times (median of 5) --------------------------------------------
+    print("path,backend,fuse,forward_ms,inverse_ms")
+
+    def pair(name, backend, fuse, fwd, inv):
+        out = fwd()
+        f_ms = timer.ms(fwd, reps=5, warmup=1)
+        i_ms = timer.ms(lambda: inv(out), reps=5, warmup=1)
+        print(f"{name},{backend},{fuse},{f_ms:.4f},{i_ms:.4f}")
+        return f_ms, i_ms
+
+    for be, fuse in (("cuda", "none"), ("cuda", "levels"),
+                     ("torch", "levels")):
+        pair("wpt2/iwpt2 full:2", be, fuse,
+             lambda: R.wpt2(xp, packet="full:2", fuse=fuse, backend=be,
+                            **kw),
+             lambda o: R.iwpt2(o, fuse=fuse, backend=be, **kw))
+    d3 = {}
+    for be, fuse in (("cuda", "none"), ("cuda", "levels"),
+                     ("torch", "levels")):
+        d3[(be, fuse)] = pair(
+            "dwt3/idwt3", be, fuse,
+            lambda: R.dwt3(vol, fuse=fuse, backend=be, **kw3),
+            lambda o: R.idwt3(o, fuse=fuse, backend=be, wavelet=wav,
+                              device=device))
+    for (scheme, fuse) in CONV_LAUNCHES:
+        for be in ("conv", "cuda", "torch"):
+            pair(f"dwt2/idwt2 {scheme}", be, fuse,
+                 lambda: R.dwt2(x, scheme=scheme, fuse=fuse, backend=be,
+                                **kwc),
+                 lambda o: R.idwt2(o, scheme=scheme, fuse=fuse, backend=be,
+                                   wavelet=wav, device=device))
+    fprog = TP.compile_temporal(wav)
+    iprog = TP.compile_temporal(wav, inverse=True)
+    lo, hi = TP.temporal_forward(vol, fprog)
+    t_fwd = timer.ms(lambda: TP.temporal_forward(vol, fprog), reps=5,
+                     warmup=1)
+    t_inv = timer.ms(lambda: TP.temporal_inverse(lo, hi, iprog), reps=5,
+                     warmup=1)
+    f3, i3 = d3[("cuda", "levels")]
+    print(f"temporal pass at level 0 of {shape3}: forward {t_fwd:.4f} ms "
+          f"({t_fwd / f3:.4f} of dwt3 cuda/levels {f3:.4f} ms), inverse "
+          f"{t_inv:.4f} ms ({t_inv / i3:.4f} of idwt3 {i3:.4f} ms)")
+    del xp, vol, lo, hi
+    return sum(per_path.values())
+
+
 def _pyramid_bytes(PP, pw, h, w):
     """Modelled and unique bytes of one fused-pyramid launch per image."""
     return PP.pyramid_hbm_bytes((h, w), 4, pw.level_blocks,
@@ -685,13 +930,17 @@ def main(argv=None):
     max_err.update(pyramid_forward=worst["pyramid_forward"],
                    pyramid_inverse=worst["pyramid_inverse"])
     launched, plans, x = phase_main(torch, R, TW, PW, device, cpu, gen)
+    timer = Timer(torch, device)
+    launched["tap_window"] += phase_workloads(torch, R, TW, PW, CV, device,
+                                              cpu, gen, x, timer)
     if not cpu:
         want = {"tap_window": 2 * sum(
-            v for k, v in EXPECTED_LAUNCHES.items() if k[1] != "pyramid"),
+            v for k, v in EXPECTED_LAUNCHES.items() if k[1] != "pyramid")
+            + 2 * sum(PACKET_LAUNCHES.values())
+            + 2 * sum(DWT3_LAUNCHES.values()),
             "pyramid_forward": 1, "pyramid_inverse": 1}
         check(launched == want, f"main path launched {launched}, expected "
                                 f"{want}")
-    timer = Timer(torch, device)
     entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     card = "cpu rehearsal" if cpu else nvidia_smi()

@@ -23,9 +23,16 @@ Registered backends:
   ``"scheme"``/``"levels"``, and one per transform under ``"pyramid"``
   (the fused-pyramid kernels, :mod:`repro_torch.kernels.pyramid_window`).
   On CPU tensors it runs the kernels' plain versions.
+* ``"conv"``  — the compiled tap programs as ``F.conv2d`` calls over the
+  stacked polyphase planes (:mod:`repro_torch.compiler.conv`; the
+  reference's ``"xla"``): one conv per barrier step under
+  ``fuse="none"``, one per level otherwise.
 
 PyTorch runs eagerly, so every backend chains levels in Python;
-``fuse="levels"`` differs from ``"scheme"`` only in name here.
+``fuse="levels"`` differs from ``"scheme"`` only in name here.  Packet and
+3-D plans run on every backend through its level hooks
+(:func:`~repro_torch.engine.executor.make_packet_forward`,
+:func:`~repro_torch.engine.executor.make_dwt3_forward`).
 """
 from __future__ import annotations
 
@@ -37,7 +44,9 @@ __all__ = ["Backend", "BackendError", "register_backend", "get_backend",
            "available_backends", "capability_matrix"]
 
 #: backends of the reference package this port does not have yet
-UNPORTED_BACKENDS = ("auto", "xla")
+UNPORTED_BACKENDS = ("auto",)
+#: reference backends whose work a port backend of another name does
+RENAMED_BACKENDS = {"xla": "conv"}
 
 
 class BackendError(ValueError):
@@ -67,6 +76,15 @@ class Backend:
     #: True when fuse="pyramid" is a real single-launch kernel (not the
     #: per-level chain)
     pyramid_kernel: bool = False
+    #: whether packet plans (PlanKey.packet) may run through this backend
+    supports_packets: bool = True
+    #: whether 3-D (t+2D) plans (PlanKey.ndim == 3) may run through it
+    supports_3d: bool = True
+    #: True when the t+2D level (temporal lifting + both 2-D half-band
+    #: transforms) counts as one fused level under fuse="levels"; False
+    #: records on the plan that the temporal pass runs unfused between
+    #: the backend's kernels (the reference's pallas capability fallback)
+    temporal_fuse: bool = True
 
     # -- plan-build hooks --------------------------------------------------
 
@@ -88,6 +106,22 @@ class Backend:
                 f"backend {self.name!r} does not support "
                 f"PlanKey.dtype={key.dtype!r}; I/O dtypes supported by "
                 f"{self.name!r}: {self.io_dtypes}")
+        if key.packet is not None and not self.supports_packets:
+            raise BackendError(
+                f"backend {self.name!r} does not support wavelet-packet "
+                f"plans (PlanKey.packet={key.packet!r})")
+        if key.ndim == 3 and not self.supports_3d:
+            raise BackendError(
+                f"backend {self.name!r} does not support 3-D plans "
+                f"(PlanKey.ndim=3)")
+        if (key.packet is not None or key.ndim == 3) \
+                and key.fuse == "pyramid":
+            # build_plan demotes user-passed fuse="pyramid" before this
+            # check runs
+            raise BackendError(
+                f"fuse='pyramid' is the 2-D pyramid megakernel; packet "
+                f"and 3-D plans on {self.name!r} execute at "
+                f"fuse='levels' (build_plan demotes automatically)")
 
     def program_opt(self, key) -> Optional[str]:
         """Tap-program compilation level for this backend, or None when
@@ -142,12 +176,24 @@ class Backend:
         launches no kernels of its own)."""
         return 0
 
+    @staticmethod
+    def level_launches(plan) -> int:
+        """Launches of a backend with one launch per program: each level
+        runs its barrier steps (``fuse="none"``) or one fused program,
+        once per node at that depth (``plan.level_runs``)."""
+        return sum(runs * (len(spec.fwd_steps) if plan.key.fuse == "none"
+                           else 1)
+                   for spec, runs in zip(plan.level_specs, plan.level_runs))
+
     def capabilities(self) -> dict:
         return {"backend": self.name, "fuse_modes": self.fuse_modes,
                 "compute_dtypes": self.compute_dtypes,
                 "io_dtypes": self.io_dtypes,
                 "window_kernel": self.window_kernel,
                 "pyramid_kernel": self.pyramid_kernel,
+                "packets": self.supports_packets,
+                "supports_3d": self.supports_3d,
+                "temporal_fuse": self.temporal_fuse,
                 "description": self.description}
 
 
@@ -177,6 +223,12 @@ def get_backend(name: str) -> Backend:
                 f"backend {name!r} (PlanKey.backend) is not ported to "
                 f"repro_torch yet; registered backends: "
                 f"{available_backends()}") from None
+        if name in RENAMED_BACKENDS:
+            raise BackendError(
+                f"backend {name!r} (PlanKey.backend) is the reference "
+                f"package's name; in repro_torch its work is backend "
+                f"{RENAMED_BACKENDS[name]!r} (registered backends: "
+                f"{available_backends()})") from None
         raise BackendError(
             f"unknown backend {name!r} (PlanKey.backend); registered "
             f"backends: {available_backends()}") from None
@@ -227,6 +279,9 @@ class CudaBackend(Backend):
     io_dtypes = ("float32", "float16", "bfloat16")
     window_kernel = True
     pyramid_kernel = True
+    # the window kernel launches per level, so a 3-D plan's temporal pass
+    # runs unfused between its launches (recorded on plan.fallback)
+    temporal_fuse = False
 
     def program_opt(self, key) -> str:
         # "off" runs the lowered raw walk, bit-identical to walking the
@@ -250,12 +305,46 @@ class CudaBackend(Backend):
         return super().make_inverse(plan)
 
     def launches(self, plan) -> int:
-        if plan.key.fuse == "none":
-            return plan.num_steps
         if plan.key.fuse == "pyramid" and plan.pyramid is not None:
             return 1
-        return len(plan.level_specs)
+        return self.level_launches(plan)
+
+
+class ConvBackend(Backend):
+    """``F.conv2d`` execution of the compiled tap programs
+    (:mod:`repro_torch.compiler.conv`; the reference's ``"xla"``).
+
+    Each compiled program is composed into one 4-in/4-out filter bank and
+    applied as a single conv over the stacked polyphase planes — one conv
+    per barrier step under ``fuse="none"``, one fused conv per level
+    otherwise, batched over images via the conv's N dimension; cuDNN at
+    full fp32 on the card.  ``fuse="pyramid"`` is rejected at plan build:
+    there is no single-launch pyramid on this path (use ``"levels"``).
+    """
+
+    name = "conv"
+    description = ("compiled tap programs as grouped F.conv2d calls "
+                   "(cuDNN on the card, TF32 off)")
+    fuse_modes = ("none", "scheme", "levels")
+
+    def program_opt(self, key) -> str:
+        # conv lowering composes a *program*; "off" (the raw matrix walk)
+        # lowers the unoptimized "exact" program, which is term-for-term
+        # the raw walk — composition erases the difference anyway
+        return "exact" if key.tap_opt == "off" else key.tap_opt
+
+    def level_forward(self, x, spec, key):
+        return X.conv_level_forward(x, spec, key)
+
+    def level_inverse(self, planes, spec, key):
+        return X.conv_level_inverse(planes, spec, key)
+
+    def launches(self, plan) -> int:
+        """``F.conv2d`` calls per execution — the barrier count of the
+        scheme under ``fuse="none"`` (ns-* schemes halve it)."""
+        return self.level_launches(plan)
 
 
 register_backend(TorchBackend())
 register_backend(CudaBackend())
+register_backend(ConvBackend())

@@ -82,6 +82,14 @@ def get_plan(*, wavelet: str = "cdf97", scheme: str = "ns-polyconv",
     process-global LRU; pass an explicit :class:`PlanCache` for
     isolation.
 
+    ``packet`` accepts anything
+    :meth:`repro_torch.core.packets.PacketTree.from_spec` does (a
+    PacketTree, ``"full:D"`` / ``"dwt:L"``, or leaf paths); it is
+    normalized to the canonical leaf tuple — so every admissible spelling
+    of the same tree shares one cached plan — and ``levels`` is
+    overridden by the tree depth.  ``ndim=3`` keys the t+2D volume
+    transform over ``(..., T, H, W)``.
+
     >>> from repro_torch.engine import PlanCache, get_plan
     >>> cache = PlanCache()
     >>> plan = get_plan(shape=(8, 64, 64), levels=2, scheme="ns-polyconv",
@@ -95,7 +103,19 @@ def get_plan(*, wavelet: str = "cdf97", scheme: str = "ns-polyconv",
     True
     >>> cache.stats()["hits"], cache.stats()["misses"]
     (1, 1)
+    >>> pk = get_plan(shape=(64, 64), packet="full:2", device="cpu",
+    ...               cache=cache)
+    >>> pk.key.levels, len(pk.key.packet), pk.launches  # 5 nodes, 2 steps
+    (2, 16, 10)
+    >>> get_plan(shape=(64, 64), packet=pk.key.packet, device="cpu",
+    ...          cache=cache) is pk               # same tree, spelled out
+    True
     """
+    if packet is not None:
+        from repro_torch.core import packets as PK
+        tree = PK.PacketTree.from_spec(packet)
+        packet = tree.leaves
+        levels = tree.depth
     key = PlanKey(wavelet=wavelet, scheme=scheme, levels=int(levels),
                   shape=tuple(int(d) for d in shape), dtype=str(dtype),
                   backend=backend, optimize=bool(optimize), fuse=fuse,
@@ -103,7 +123,7 @@ def get_plan(*, wavelet: str = "cdf97", scheme: str = "ns-polyconv",
                   tap_opt=tap_opt, device=str(resolve_device(device)),
                   tiles=(None if tiles is None
                          else (int(tiles[0]), int(tiles[1]))),
-                  packet=None if packet is None else packet,
+                  packet=packet,
                   ndim=int(ndim))
     # explicit None check: an empty PlanCache is falsy (__len__ == 0)
     return (_GLOBAL if cache is None else cache).get(key)

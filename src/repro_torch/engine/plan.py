@@ -32,10 +32,14 @@ Execution semantics (see :mod:`repro_torch.engine.backends` /
   backend ``"pyramid"`` runs the per-level chain (bit-identical to
   ``fuse="none"``).
 
-Fields of the reference's PlanKey that this port does not execute yet
-(``tiles``, ``packet``, ``ndim=3``) stay in the key and raise
-:class:`~repro_torch.engine.backends.BackendError` at plan build, naming
-the field.
+Wavelet-packet plans (``PlanKey.packet``, the canonical leaf tuple of a
+:class:`~repro_torch.core.packets.PacketTree`) and 3-D (t+2D) plans
+(``PlanKey.ndim=3``) run on every backend through its level hooks; they
+demote ``fuse="pyramid"`` to ``"levels"`` (counted in
+:data:`WORKLOAD_COUNTERS`), as the reference does.  The one field of the
+reference's PlanKey this port does not execute yet (``tiles``) stays in
+the key and raises :class:`~repro_torch.engine.backends.BackendError` at
+plan build, naming the field.
 """
 from __future__ import annotations
 
@@ -47,12 +51,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.engine.pyramid import Pyramid
+from repro_torch.engine.pyramid import Pyramid, Pyramid3, WaveletPacket2D
 
 from repro_torch import compiler as C
 from repro_torch.core import optimize as O
 from repro_torch.core import schemes as S
 from repro_torch.engine import backends as B
+from repro_torch.engine import executor as X
 from repro_torch.kernels import polyphase as PP
 from repro_torch.kernels import pyramid_window as PW
 from repro_torch.kernels import tap_window as TW
@@ -70,13 +75,17 @@ PYRAMID_SMEM_LIMIT_ENV = "REPRO_TORCH_PYRAMID_SMEM_LIMIT"
 #: are ``pyramid_window.FORWARD`` / ``.INVERSE``) and fuse="pyramid"
 #: plans demoted to fuse="levels" by the shared-memory guard
 COUNTERS = {"pyramid_kernel_launches": 0, "smem_fallbacks": 0}
+#: fuse="pyramid" plans demoted to fuse="levels" because the fused-pyramid
+#: kernels are 2-D-pyramid-only, by workload (the reference's
+#: repro_workload_fuse_demotions_total)
+WORKLOAD_COUNTERS = {"packet": 0, "dwt3": 0}
 _COUNTERS_LOCK = threading.Lock()
 
 
-def count(name: str) -> None:
-    """Add one to ``COUNTERS[name]`` (plans build and run on any thread)."""
+def count(name: str, counters: dict = COUNTERS) -> None:
+    """Add one to ``counters[name]`` (plans build and run on any thread)."""
     with _COUNTERS_LOCK:
-        COUNTERS[name] += 1
+        counters[name] += 1
 
 
 def pyramid_smem_limit() -> int:
@@ -128,9 +137,14 @@ class PlanKey:
     compute_dtype: str = "float32"
     tap_opt: str = "full"
     device: str = "cuda"
-    # reference features not ported yet: must stay at these values
+    # tiled execution: not ported yet, must stay None
     tiles: Optional[Tuple[int, int]] = None
+    # canonical packet-tree leaf paths (repro_torch.core.packets.PacketTree),
+    # or None for the plain LL-recursion pyramid; when set, ``levels``
+    # equals the tree depth and ``shape`` stays (..., H, W)
     packet: Optional[Tuple[str, ...]] = None
+    # 2 = image (..., H, W); 3 = volume (..., T, H, W) — the t+2D
+    # transform (1-D temporal lifting + 2-D per half-band, per level)
     ndim: int = 2
 
 
@@ -246,6 +260,18 @@ class DwtPlan:
         return B.get_backend(self.key.backend)
 
     @property
+    def level_runs(self) -> Tuple[int, ...]:
+        """How many times each level's 2-D transform runs per execution:
+        once per internal packet node at that depth, twice (both temporal
+        half-bands) for a 3-D plan, else once."""
+        if self.key.packet is not None:
+            from repro_torch.core import packets as PK
+            depths = [len(p) for p in
+                      PK.PacketTree(self.key.packet).internal_nodes()]
+            return tuple(depths.count(d) for d in range(self.key.levels))
+        return (2 if self.key.ndim == 3 else 1,) * self.key.levels
+
+    @property
     def launches(self) -> int:
         """Kernel launches per execution (forward or inverse) under this
         plan's fuse mode, as modelled by the backend."""
@@ -256,22 +282,40 @@ class DwtPlan:
             raise ValueError(f"plan built for device {self.key.device}, "
                              f"got {what} on {t.device}")
 
-    def execute(self, x: torch.Tensor) -> Pyramid:
-        """Forward transform of ``x`` (shape must equal ``key.shape``)."""
-        if tuple(x.shape) != self.key.shape:
+    def execute(self, x: torch.Tensor):
+        """Forward transform of ``x`` (shape must equal ``key.shape``).
+
+        Returns a :class:`Pyramid` (2-D), :class:`Pyramid3`
+        (``key.ndim == 3``) or :class:`WaveletPacket2D`
+        (``key.packet``)."""
+        k = self.key
+        if tuple(x.shape) != k.shape:
             raise ValueError(
-                f"plan built for shape {self.key.shape}, got "
-                f"{tuple(x.shape)}")
+                f"plan built for shape {k.shape}, got {tuple(x.shape)}")
         self._check_device(x, "input")
-        ll, details = self._forward(x)
+        out = self._forward(x)
+        if k.packet is not None:
+            return WaveletPacket2D(paths=k.packet, leaves=list(out))
+        ll, details = out
+        if k.ndim == 3:
+            return Pyramid3(ll=ll, details=list(details))
         return Pyramid(ll=ll, details=list(details))
 
-    def execute_inverse(self, pyr: Pyramid) -> torch.Tensor:
-        """Inverse transform of a :class:`Pyramid` produced by
-        :meth:`execute`."""
-        if pyr.levels != self.key.levels:
+    def execute_inverse(self, pyr) -> torch.Tensor:
+        """Inverse transform of a container produced by :meth:`execute`
+        (:class:`Pyramid`, :class:`Pyramid3` or, for packet plans, a
+        :class:`WaveletPacket2D` over the leaf set ``key.packet``)."""
+        k = self.key
+        if k.packet is not None:
+            if tuple(pyr.paths) != k.packet:
+                raise ValueError(
+                    f"plan built for packet leaves {k.packet}, "
+                    f"got {tuple(pyr.paths)}")
+            self._check_device(pyr.leaves[0], "packet")
+            return self._inverse(tuple(pyr.leaves))
+        if pyr.levels != k.levels:
             raise ValueError(
-                f"plan built for {self.key.levels} levels, "
+                f"plan built for {k.levels} levels, "
                 f"pyramid has {pyr.levels}")
         self._check_device(pyr.ll, "pyramid")
         return self._inverse(pyr.ll, tuple(tuple(d) for d in pyr.details))
@@ -391,7 +435,9 @@ def build_plan(key: PlanKey) -> DwtPlan:
     Unknown backends, unsupported ``(backend, PlanKey)`` combinations and
     reference features not ported yet raise
     :class:`~repro_torch.engine.backends.BackendError` here, at plan
-    build, with the offending PlanKey field named.
+    build, with the offending PlanKey field named.  Packet and 3-D keys
+    are checked in the reference's order with its texts, and demote
+    ``fuse="pyramid"`` to ``"levels"`` (stated in ``plan.fallback``).
     """
     key = canonical_key(key)
     backend = B.get_backend(key.backend)
@@ -409,32 +455,73 @@ def build_plan(key: PlanKey) -> DwtPlan:
                          f"available: {C.OPT_LEVELS}")
     if key.levels < 1:
         raise ValueError(f"levels must be >= 1, got {key.levels}")
+    demoted = None
     if key.ndim not in (2, 3):
         raise ValueError(f"ndim must be 2 or 3, got {key.ndim}")
-    if key.ndim == 3:
-        raise B.BackendError(
-            "3-D (t+2D) plans (PlanKey.ndim=3) are not ported to "
-            "repro_torch yet")
-    if key.packet is not None:
-        raise B.BackendError(
-            f"wavelet-packet plans (PlanKey.packet={key.packet!r}) are not "
-            f"ported to repro_torch yet")
+    if key.packet is not None or key.ndim == 3:
+        workload = "packet" if key.packet is not None else "dwt3"
+        if key.packet is not None and key.ndim != 2:
+            raise ValueError(
+                "packet transforms are 2-D (PlanKey.packet with "
+                f"ndim={key.ndim}); decompose frames individually or "
+                "use the plain 3-D pyramid (ndim=3, packet=None)")
+        if key.tiles is not None:
+            raise ValueError(
+                f"tiled execution (PlanKey.tiles={key.tiles!r}) is "
+                f"2-D-pyramid-only; {workload} plans run monolithic")
+        if key.packet is not None:
+            from repro_torch.core import packets as PK
+            tree = PK.PacketTree(key.packet)   # validates admissibility
+            if tree.depth != key.levels:
+                raise ValueError(
+                    f"PlanKey.levels={key.levels} must equal the packet "
+                    f"tree depth {tree.depth} (get_plan normalizes this)")
+        if key.fuse == "pyramid":
+            # the fused-pyramid kernels run the 2-D LL recursion only —
+            # packet trees branch into all four children and the 3-D
+            # level interleaves a temporal pass
+            count(workload, WORKLOAD_COUNTERS)
+            key = dataclasses.replace(key, fuse="levels")
+            demoted = (f"fuse='pyramid' is the 2-D pyramid megakernel; "
+                       f"{workload} plan executes as fuse='levels'")
     if key.tiles is not None:
         raise B.BackendError(
             f"tiled execution (PlanKey.tiles={key.tiles!r}) is not ported "
             f"to repro_torch yet")
-    if len(key.shape) < 2:
-        raise ValueError(f"input must be (..., H, W), got {key.shape}")
+    min_rank = 3 if key.ndim == 3 else 2
+    want = "(..., T, H, W)" if key.ndim == 3 else "(..., H, W)"
+    if len(key.shape) < min_rank:
+        raise ValueError(f"input must be {want}, got {key.shape}")
     backend.validate(key)
     h, w = key.shape[-2], key.shape[-1]
     validate_image_geometry(h, w, key.levels)
+    if key.ndim == 3:
+        t, div = key.shape[-3], 1 << key.levels
+        if t % div:
+            raise ValueError(
+                f"levels={key.levels} infeasible for volume "
+                f"{t}x{h}x{w}: T={t} is not divisible by "
+                f"2^levels={div}")
 
     fwd = scheme_steps(key.wavelet, key.scheme, key.optimize, False)
     inv = scheme_steps(key.wavelet, key.scheme, False, True)
     specs = tuple(_resolve_level(lvl, h >> lvl, w >> lvl, key, fwd, inv,
                                  backend)
                   for lvl in range(key.levels))
-    plan = DwtPlan(key=key, level_specs=specs)
+    plan = DwtPlan(key=key, level_specs=specs, fallback=demoted)
+    if key.packet is not None:
+        plan._forward = X.make_packet_forward(plan, backend)
+        plan._inverse = X.make_packet_inverse(plan, backend)
+        return plan
+    if key.ndim == 3:
+        if key.fuse == "levels" and not backend.temporal_fuse \
+                and plan.fallback is None:
+            plan.fallback = (
+                f"backend {key.backend!r} has no fused t+2D trace; the "
+                f"temporal pass runs unfused between its 2-D levels")
+        plan._forward = X.make_dwt3_forward(plan, backend)
+        plan._inverse = X.make_dwt3_inverse(plan, backend)
+        return plan
     if key.fuse == "pyramid" and backend.pyramid_kernel:
         plan.pyramid, plan.fallback = _resolve_pyramid(key, h, w)
     plan._forward = backend.make_forward(plan)

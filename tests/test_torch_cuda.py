@@ -1,5 +1,7 @@
 """The CUDA kernels on the card (the window kernel K1 and the
-fused-pyramid kernels K2/K3), against their plain versions.
+fused-pyramid kernels K2/K3), against their plain versions; the packet
+and 3-D paths through K1 against the same calls on the CPU; and the
+conv backend on the card at full fp32.
 
 Marked ``cuda``: where no CUDA device is present every test skips with
 that reason.  On a machine with the card (no JAX needed):
@@ -276,3 +278,74 @@ def test_inverse_pyramid_refuses_a_launch_it_cannot_make_cooperative(
     assert PW.INVERSE.launches == before
     assert torch.equal(PW.pyramid_inverse(inv, ll, det),
                        PW.pyramid_inverse_ref(inv, ll, det))
+
+
+@pytest.mark.parametrize("fuse", ("none", "levels"))
+def test_workloads_on_the_card_equal_the_cpu_bit_for_bit(cuda_device, fuse):
+    """wpt2/iwpt2 and dwt3/idwt3 through K1 equal the same calls on
+    device="cpu" (the kernel's plain version) bit for bit in fp32, and
+    launch K1 exactly ``plan.launches`` times per transform."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((3, 40, 56), generator=g)
+    v = torch.randn((2, 8, 24, 40), generator=g)
+    mixed = ("aa", "ah", "av", "ad", "h", "v", "da", "dh", "dv", "dd")
+    for packet in ("full:2", mixed):
+        kw = dict(packet=packet, fuse=fuse, backend="cuda")
+        plan = R.get_plan(shape=tuple(x.shape), device=cuda_device, **kw)
+        before = TW.KERNEL.launches
+        got = R.wpt2(x, device=cuda_device, **kw)
+        torch.cuda.synchronize()
+        assert TW.KERNEL.launches == before + plan.launches
+        want = R.wpt2(x, device="cpu", **kw)
+        for a, b in zip(got.leaves, want.leaves):
+            assert torch.equal(a.cpu(), b)
+        rec = R.iwpt2(got, fuse=fuse, backend="cuda", device=cuda_device)
+        assert torch.equal(rec.cpu(), R.iwpt2(want, fuse=fuse,
+                                              backend="cuda", device="cpu"))
+    kw = dict(levels=2, fuse=fuse, backend="cuda")
+    plan = R.get_plan(shape=tuple(v.shape), ndim=3, device=cuda_device, **kw)
+    before = TW.KERNEL.launches
+    got = R.dwt3(v, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert TW.KERNEL.launches == before + plan.launches
+    want = R.dwt3(v, device="cpu", **kw)
+    for a, b in zip([got.ll, *[d for det in got.details for d in det]],
+                    [want.ll, *[d for det in want.details for d in det]]):
+        assert torch.equal(a.cpu(), b)
+    rec = R.idwt3(got, fuse=fuse, backend="cuda", device=cuda_device)
+    assert torch.equal(rec.cpu(), R.idwt3(want, fuse=fuse, backend="cuda",
+                                          device="cpu"))
+    torch.testing.assert_close(rec.cpu(), v, **ROUNDTRIP_TOL)
+
+
+@pytest.mark.parametrize("scheme,fuse", [("ns-polyconv", "none"),
+                                         ("ns-polyconv", "levels"),
+                                         ("sep-lifting", "none")])
+def test_conv_backend_runs_full_fp32_whatever_the_tf32_flag(cuda_device,
+                                                            scheme, fuse):
+    """With cuDNN's TF32 allowed globally (PyTorch's default), the conv
+    backend still agrees with the torch backend to the fp32 bound, and
+    leaves the setting as it found it."""
+    cudnn = torch.backends.cudnn
+    conv = getattr(cudnn, "conv", None)
+
+    def setting():
+        return cudnn.allow_tf32, getattr(conv, "fp32_precision", None)
+
+    old = setting()
+    cudnn.allow_tf32 = True
+    try:
+        before = setting()
+        x = torch.randn((4, 256, 384), generator=torch.Generator()
+                        .manual_seed(8)).to(cuda_device)
+        kw = dict(scheme=scheme, fuse=fuse, device=cuda_device)
+        pyr = R.dwt2(x, levels=3, backend="conv", **kw)
+        ref = R.dwt2(x, levels=3, backend="torch", **kw)
+        for a, b in zip([pyr.ll, *[d for det in pyr.details for d in det]],
+                        [ref.ll, *[d for det in ref.details for d in det]]):
+            torch.testing.assert_close(a, b, **CROSS_TOL["float32"])
+        rec = R.idwt2(pyr, backend="conv", **kw)
+        torch.testing.assert_close(rec, x, **ROUNDTRIP_TOL)
+        assert setting() == before
+    finally:
+        cudnn.allow_tf32 = old[0]

@@ -285,9 +285,8 @@ def test_plan_rejects_input_on_another_device():
 
 @pytest.mark.parametrize("kw,field", [
     (dict(tiles=(8, 8)), "PlanKey.tiles"),
-    (dict(packet=("a", "h", "v", "d")), "PlanKey.packet"),
-    (dict(ndim=3), "PlanKey.ndim=3"),
-    (dict(backend="xla"), "PlanKey.backend"),
+    # the reference's XLA conv path is backend "conv" here
+    (dict(backend="xla"), "'conv'"),
     (dict(backend="auto"), "PlanKey.backend"),
     (dict(backend="nope"), "PlanKey.backend"),
     (dict(backend="cuda", dtype="float64"), "PlanKey.dtype"),
@@ -297,6 +296,7 @@ def test_unported_features_raise_at_plan_build(kw, field):
         TE.get_plan(shape=(2, 32, 32), device="cpu", cache=TE.PlanCache(),
                     **kw)
     assert field in str(err.value)
+    assert "PlanKey." in str(err.value)
 
 
 def test_torch_backend_runs_pyramid_as_level_chain():
