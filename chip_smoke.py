@@ -54,6 +54,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (median of 5) beside backend "torch" (and, for the conv
              path, "cuda"), ``temporal_forward`` alone at level 0, and
              K1's launches per path;
+3d. telemetry — the telemetry and fault planes at the main path's width
+             (ns-polyconv "pyramid", "levels", "none"): in "spans" mode
+             inside ``torch.profiler``, ``execute.*`` must hold one
+             ``pyramid.launch`` or three ``level.*`` spans, all timed on
+             the card, with every K1/K2/K3 launch inside its span in the
+             profiler trace and both Chrome traces valid JSON (written to
+             ``build/chip_smoke/``); the live roofline at most
+             3,350 GB/s and within 2x of a CUDA-event median over the same
+             ``plan_hbm_bytes`` (spans and events both around calls made
+             back to back; the roofline read after five: the newest, and
+             the ring's median); the same count of
+             synchronising calls in "off", "counters" and "spans" (sync
+             debug mode); recovery — ``pyramid.launch=raise:always``
+             degrades to cuda/levels, bit for bit, K1 +3, K2 +0, the
+             phase's one fallback; ``execute.forward=corrupt:once``
+             retried once, bit for bit; ``torch/none`` exhausts the
+             chain; resilience off fails fast; and the overhead of each
+             mode, on the card and on the host.  Phases 2, 2b, 3, 3c and
+             4, and each step of 3d but the recovery, end with no
+             fallback counted (``repro_fallbacks_total``, read directly:
+             it counts in every telemetry mode);
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
@@ -69,10 +90,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. result  — the card's name and power limit, one JSON line listing every
              kernel, and the last line
              {"ok": true, "device": {"platform": "gpu", ...}}.
+
+``python3 chip_smoke.py --host-overhead SRC [SRC ...]`` runs only phase
+3d's host-overhead step, for the ``repro_torch`` package of each ``SRC``
+(say ``build/parent/src src``: a parent's checkout, timed as it is when
+it has no telemetry, and this one), all held in one process and timed
+round by round, so that two trees compare on one card and one host.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib.util
 import itertools
 import json
 import statistics
@@ -171,6 +200,27 @@ class Timer:
                 fn()
                 times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
+
+    def back_to_back_ms(self, fn, reps=REPS, warmup=2):
+        """Median of ``reps`` calls made back to back, each between two
+        CUDA events, nothing waited for until the last: a call's start
+        event fires when the card has finished the call before it (as a
+        span's does), not while the host is still enqueueing."""
+        torch = self.torch
+        if not self.cuda:
+            return self.ms(fn, reps, warmup)
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        pairs[-1][1].synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def kernels(TW, PW):
@@ -725,6 +775,461 @@ def phase_workloads(torch, R, TW, PW, CV, device, cpu, gen, x, timer):
     return sum(per_path.values())
 
 
+SPAN_NAMES = ("execute.forward", "execute.inverse", "pyramid.launch",
+              "level.forward", "level.inverse")
+#: kernel names (demangled prefixes) of the profiler's device events
+KERNEL_SYMBOLS = {"tap_window": "tap_window_kernel",
+                  "pyramid_forward": "pyramid_forward_kernel",
+                  "pyramid_inverse": "pyramid_inverse_kernel"}
+
+
+def fallbacks():
+    """Degradation-chain hops so far: ``repro_fallbacks_total`` read
+    directly (it counts in every telemetry mode)."""
+    from repro_torch.faults import degrade as DG
+    return int(sum(row["value"] for row in DG.FALLBACKS.series()))
+
+
+def no_fallbacks(where):
+    """The fault plane never hides a kernel: outside phase 3d's own
+    recovery checks no execution may have degraded."""
+    n = fallbacks()
+    check(n == 0, f"{where}: {n} executions degraded down the fallback "
+                  f"chain (repro_fallbacks_total)")
+
+
+def _profiled_kernels_inside(doc, span_names):
+    """Each of our kernels' device events in a ``torch.profiler`` Chrome
+    trace, with the span (``record_function`` range) it was launched in:
+    the runtime call of the same correlation id inside the range on the
+    host, or the kernel inside the range's projection on the device.
+    Returns ``{kernel: [span name or None per launch]}``."""
+    evs = [e for e in doc.get("traceEvents", []) if e.get("ph") == "X"]
+    host = [e for e in evs if e.get("cat") == "user_annotation"
+            and e["name"] in span_names]
+    dev = [e for e in evs if e.get("cat") == "gpu_user_annotation"
+           and e["name"] in span_names]
+    calls = {e["args"]["correlation"]: e for e in evs
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+
+    def within(t0, t1, ranges):
+        # the innermost range holding [t0, t1]
+        inside = [r for r in ranges
+                  if r["ts"] <= t0 and t1 <= r["ts"] + r["dur"]]
+        return min(inside, key=lambda r: r["dur"])["name"] if inside \
+            else None
+
+    out = {}
+    for e in evs:
+        if e.get("cat") != "kernel":
+            continue
+        name = next((k for k, sym in KERNEL_SYMBOLS.items()
+                     if sym in e["name"]), None)
+        if name is None:
+            continue
+        call = calls.get(e.get("args", {}).get("correlation"))
+        where = (within(call["ts"], call["ts"], host) if call is not None
+                 else None) or within(e["ts"], e["ts"] + e["dur"], dev)
+        out.setdefault(name, []).append(where)
+    return out
+
+
+def _package_modules():
+    return {n: m for n, m in sys.modules.items()
+            if n == "repro_torch" or n.startswith("repro_torch.")}
+
+
+def load_tree(src):
+    """A checkout's ``repro_torch`` (``src`` is its ``src/``), imported
+    afresh beside any other tree this process holds; run it inside
+    :func:`tree_in_use`."""
+    tree = {"src": str(src), "mods": {}}
+    with tree_in_use(tree) as R:
+        check(Path(R.__file__).resolve().is_relative_to(src),
+              f"repro_torch imported from {R.__file__}, not {src}")
+        try:
+            importlib.import_module("repro_torch.telemetry")
+            tree["modes"] = ("off", "counters", "spans")
+        except ModuleNotFoundError:
+            tree["modes"] = ("as_is",)      # a tree from before telemetry
+    return tree
+
+
+@contextlib.contextmanager
+def tree_in_use(tree):
+    """Swap ``tree``'s modules into ``sys.modules`` and its ``src`` onto
+    the front of ``sys.path``, so that what it imports at call time is
+    its own; yields its ``repro_torch``."""
+    for name in _package_modules():
+        del sys.modules[name]
+    sys.modules.update(tree["mods"])
+    sys.path.insert(0, tree["src"])
+    try:
+        yield importlib.import_module("repro_torch")
+    finally:
+        sys.path.remove(tree["src"])
+        tree["mods"] = _package_modules()
+
+
+def host_overhead(torch, trees, device, gen, rounds=201, batch=10):
+    """Host time per ``plan.execute`` on an 8x64x64 input, the fault
+    plane disarmed, at ``"none"`` and ``"pyramid"``, for every tree and
+    each of its telemetry modes: ``rounds`` rounds, each timing ``batch``
+    calls back to back in every (tree, mode) cell, the cells in an order
+    rotated by one per round (``time.perf_counter``; the card is waited
+    for after each batch, outside the clock); prints and returns the
+    median µs per call over the rounds, ``{fuse: {src: {mode: µs}}}``."""
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    small = torch.randn((8, 64, 64), generator=gen).to(device)
+    print(f"overhead (host): fuse,src,mode,us (per plan.execute on "
+          f"8x64x64, perf_counter, median of {rounds} rounds of {batch} "
+          f"calls, every cell in every round)")
+    cells = [(t, m) for t in trees for m in t["modes"]]
+    out = {}
+    for fuse in ("none", "pyramid"):
+        plans, per = {}, {}
+        for t in trees:
+            with tree_in_use(t) as R:
+                plans[t["src"]] = plan = R.get_plan(
+                    shape=tuple(small.shape), wavelet=MAIN["wavelet"],
+                    scheme="ns-polyconv", levels=MAIN["levels"],
+                    backend="cuda", fuse=fuse, device=device)
+                for _ in range(2 * batch):
+                    plan.execute(small)
+                sync()
+        for r in range(rounds):
+            k = r % len(cells)
+            for t, mode in cells[k:] + cells[:k]:
+                with tree_in_use(t):
+                    if mode != "as_is":
+                        t["mods"]["repro_torch.telemetry"].set_mode(mode)
+                    plan = plans[t["src"]]
+                    t0 = time.perf_counter()
+                    for _ in range(batch):
+                        plan.execute(small)
+                    dt = time.perf_counter() - t0
+                    sync()
+                per.setdefault(t["src"], {}).setdefault(mode, []).append(
+                    dt / batch * 1e6)
+        out[fuse] = {src: {m: statistics.median(v) for m, v in row.items()}
+                     for src, row in per.items()}
+        for src, row in out[fuse].items():
+            for mode, us in row.items():
+                print(f"{fuse},{src},{mode},{us:.2f}")
+    for t in trees:
+        if "repro_torch.telemetry" in t["mods"]:
+            t["mods"]["repro_torch.telemetry"].set_mode("counters")
+    return out
+
+
+def phase_telemetry(torch, R, TW, PW, device, cpu, gen, x, timer):
+    """Phase 3d: the telemetry plane and the fault plane on the main
+    path's images (spans timed on the card, the live roofline, no
+    synchronisation added by counters, recovery, overhead); returns the
+    launches of each kernel it drove."""
+    print("== phase 3d: telemetry, the fault plane and resilient dispatch",
+          flush=True)
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import telemetry as T
+    from repro_torch.faults import degrade as DG
+    from repro_torch.faults import inject as FJ
+    from repro_torch.faults import plan as FP
+    from repro_torch.faults.policy import RETRIES
+    from repro_torch.kernels import polyphase as PP
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    counters = kernels(TW, PW)
+    launched = {name: 0 for name in counters}
+    expected = {name: 0 for name in counters}
+    L, wav = MAIN["levels"], MAIN["wavelet"]
+    kw = dict(wavelet=wav, scheme="ns-polyconv", levels=L, backend="cuda",
+              device=device)
+    kwi = {k: v for k, v in kw.items() if k != "levels"}
+    plans = {f: R.get_plan(shape=tuple(x.shape), fuse=f, **kw)
+             for f in ("pyramid", "levels", "none")}
+    check(plans["pyramid"].pyramid is not None, "pyramid plan fell back")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def drive(fn, k1=0, k2=0, k3=0):
+        """One driven path with every launch counter at 0 just before it
+        and read just after; on the card the counts must be exactly
+        ``k1``/``k2``/``k3``."""
+        for k in counters.values():
+            k.launches = 0
+        out = fn()
+        sync()
+        got = {n: k.launches for n, k in counters.items()}
+        want = {"tap_window": k1, "pyramid_forward": k2,
+                "pyramid_inverse": k3}
+        for n in launched:
+            launched[n] += got[n]
+            expected[n] += want[n]
+        if cuda:
+            check(got == want, f"phase 3d launched {got}, expected {want}")
+        return out
+
+    def equal(a, b):
+        return all(torch.equal(p, q) for p, q in zip(_flat(a), _flat(b)))
+
+    def fresh(where):
+        """Zero the telemetry plane for the next step, after checking that
+        nothing degraded in the last one (a reset would hide it)."""
+        no_fallbacks(f"phase 3d, {where}")
+        T.reset()
+
+    # -- 1. spans on the device, inside torch.profiler -------------------
+    prev_prof = os.environ.get(T.PROFILER_ANNOTATIONS_ENV)
+    os.environ[T.PROFILER_ANNOTATIONS_ENV] = "1"
+    T.reload()
+    T.set_mode("spans")
+    fresh("start")
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+
+    def four():
+        for fuse in ("pyramid", "levels"):
+            pyr = R.dwt2(x, fuse=fuse, **kw)
+            R.idwt2(pyr, fuse=fuse, **kwi)
+
+    try:
+        with profile(activities=acts) as prof:
+            drive(four, k1=2 * L, k2=1, k3=1)
+    finally:
+        if prev_prof is None:
+            del os.environ[T.PROFILER_ANNOTATIONS_ENV]
+        else:
+            os.environ[T.PROFILER_ANNOTATIONS_ENV] = prev_prof
+        T.reload()
+    T.set_mode("spans")
+    recs = T.TRACER.records()
+    clock = "cuda" if cuda else "host"
+    for fuse in ("pyramid", "levels"):
+        for op in ("forward", "inverse"):
+            ex = [r for r in recs if r.name == f"execute.{op}"
+                  and r.labels.get("fuse") == fuse]
+            check(len(ex) == 1, f"{len(ex)} execute.{op} spans at {fuse}")
+            kids = [r for r in recs if r.parent_id == ex[0].span_id]
+            want = (["pyramid.launch"] if fuse == "pyramid"
+                    else [f"level.{op}"] * L)
+            check([k.name for k in kids] == want,
+                  f"execute.{op} at {fuse} holds {[k.name for k in kids]}")
+            check(ex[0].clock == clock and all(k.clock == clock
+                                               for k in kids),
+                  f"execute.{op} at {fuse}: spans not timed on {clock}")
+            check(ex[0].dur_s >= max(k.dur_s for k in kids) > 0,
+                  f"execute.{op} at {fuse}: shorter than its children")
+    trace = out_dir / "profiler_trace.json"
+    prof.export_chrome_trace(str(trace))
+    doc = json.loads(trace.read_text())
+    names = {e.get("name") for e in doc.get("traceEvents", [])
+             if e.get("cat") == "user_annotation"}
+    check(set(SPAN_NAMES) <= names,
+          f"torch.profiler trace lacks spans {set(SPAN_NAMES) - names}")
+    if cuda:
+        inside = _profiled_kernels_inside(doc, SPAN_NAMES)
+        print(f"profiler: kernels by the span they were launched in: "
+              f"{ {k: sorted(set(map(str, v))) for k, v in inside.items()} }")
+        check(len(inside.get("pyramid_forward", [])) == 1
+              and len(inside.get("pyramid_inverse", [])) == 1
+              and len(inside.get("tap_window", [])) == 2 * L,
+              f"profiler saw kernels {inside}")
+        check(set(inside["pyramid_forward"] + inside["pyramid_inverse"])
+              == {"pyramid.launch"},
+              f"K2/K3 launched outside pyramid.launch: {inside}")
+        check(set(inside["tap_window"]) <= {"level.forward",
+                                            "level.inverse"},
+              f"K1 launched outside level.*: {inside['tap_window']}")
+    spans_json = T.write_chrome_trace(out_dir / "spans_trace.json")
+    doc = json.loads(Path(spans_json).read_text())
+    check(any(e["ph"] == "X" for e in doc["traceEvents"]),
+          "span Chrome trace has no events")
+    print(f"Chrome traces: {trace.relative_to(ROOT)} (torch.profiler), "
+          f"{Path(spans_json).relative_to(ROOT)} (spans), both valid JSON")
+    print("span,count,clock,total_ms,mean_ms,max_ms")
+    for row in T.span_summary():
+        print(f"{row['name']},{row['count']},{row['clock']},"
+              f"{row['total_s'] * 1e3:.4f},{row['mean_s'] * 1e3:.4f},"
+              f"{row['max_s'] * 1e3:.4f}")
+
+    # -- 2. the live roofline against CUDA events -------------------------
+    # the reps run back to back, as a caller's would: nothing waits for
+    # the card until the roofline (the newest execution) and the ring (the
+    # median over the reps) are read after them.  They are held against
+    # CUDA events around the same call made back to back too; events
+    # around one call on an idle card (idle_ms) also hold the host's
+    # enqueue, and are printed beside them
+    print("roofline: fuse,op,span_ms,gbps,ring_median_gbps,event_ms,"
+          "event_gbps,ratio,idle_ms")
+    fresh("spans")
+    reps = 5
+    for fuse in ("pyramid", "levels"):
+        plan = plans[fuse]
+        pyr = plan.execute(x)
+        k = (0, 1, 0) if fuse == "pyramid" else (L, 0, 0)
+        for op, run in (("forward", lambda: plan.execute(x)),
+                        ("inverse", lambda: plan.execute_inverse(pyr))):
+            T.set_mode("spans")
+            T.TRACER.clear()
+            drive(lambda: [run() for _ in range(reps)], k1=reps * k[0],
+                  k2=reps * k[1] if op == "forward" else 0,
+                  k3=reps * k[1] if op == "inverse" else 0)
+            (row,) = [r for r in T.roofline()
+                      if r["fuse"] == fuse and r["op"] == op]
+            ring = [r.dur_s for r in T.TRACER.records()
+                    if r.name == f"execute.{op}"]
+            check(len(ring) == reps, f"{len(ring)} execute.{op} spans")
+            bytes_ = PP.plan_hbm_bytes(plan, op)
+            ring_gbps = bytes_ / statistics.median(ring) / 1e9
+            T.set_mode("counters")
+            ev_ms = timer.back_to_back_ms(run, reps=20)
+            idle_ms = timer.ms(run, reps=20)
+            ev_gbps = bytes_ / (ev_ms / 1e3) / 1e9
+            print(f"{fuse},{op},{row['seconds'] * 1e3:.4f},"
+                  f"{row['gbps']:.5g},{ring_gbps:.5g},{ev_ms:.4f},"
+                  f"{ev_gbps:.5g},{row['gbps'] / ev_gbps:.4f},"
+                  f"{idle_ms:.4f}")
+            if cuda:
+                check(max(row["gbps"], ring_gbps) <= HBM_BYTES_PER_S / 1e9,
+                      f"{fuse}/{op}: live roofline {row['gbps']:.1f} GB/s "
+                      f"above the card's {HBM_BYTES_PER_S / 1e9:.0f}")
+                check(0.5 <= row["gbps"] / ev_gbps <= 2.0
+                      and 0.5 <= ring_gbps / ev_gbps <= 2.0,
+                      f"{fuse}/{op}: live roofline {row['gbps']:.1f} GB/s "
+                      f"(ring median {ring_gbps:.1f}) vs CUDA events "
+                      f"{ev_gbps:.1f} GB/s")
+    fresh("roofline")
+
+    # -- 3. counters (and spans) mode adds no synchronisation ------------
+    def both():
+        for fuse in ("pyramid", "none"):
+            pyr = R.dwt2(x, fuse=fuse, **kw)
+            R.idwt2(pyr, fuse=fuse, **kwi)
+
+    if cuda:
+        # the counter sees a synchronising call where there is one
+        control = T.synchronising_calls(lambda: float(x[0, 0, 0]))
+        check(len(control) >= 1, "sync debug mode saw no synchronisation "
+                                 "in a device-to-host read")
+        counts, seen = {}, set()
+        for mode in ("off", "counters", "spans", "spans", "counters",
+                     "off"):
+            T.set_mode(mode)
+            calls = drive(lambda: T.synchronising_calls(both), k1=4 * L,
+                          k2=1, k3=1)
+            counts.setdefault(mode, []).append(len(calls))
+            seen.update(calls)
+        print(f"synchronising calls of dwt2+idwt2 at pyramid and none, per "
+              f"mode: {counts} {sorted(seen)}")
+        check(counts["counters"] == counts["off"],
+              f"counters mode adds synchronisation: {counts}")
+        check(counts["spans"] == counts["off"],
+              f"spans mode waits for the card: {counts}")
+    T.set_mode("counters")
+    fresh("synchronisation")
+
+    # -- 4. recovery on the card ------------------------------------------
+    direct = drive(lambda: R.dwt2(x, fuse="levels", **kw), k1=L)
+    FJ.activate(FP.FaultPlan.from_text("pyramid.launch=raise:always"))
+    try:
+        got = drive(lambda: R.dwt2(x, fuse="pyramid", **kw), k1=L)
+    finally:
+        FJ.activate(None)
+    hop = DG.FALLBACKS.value(**{"from": "cuda/pyramid", "to": "cuda/levels",
+                                "site": "pyramid.launch"})
+    check(equal(got, direct) and hop == 1,
+          f"pyramid.launch=raise:always: equal to cuda/levels "
+          f"{equal(got, direct)}, fallbacks {DG.FALLBACKS.series()}")
+    print("pyramid.launch=raise:always: degraded to cuda/levels (verified "
+          "against torch/none), equal to a direct cuda/levels call bit for "
+          "bit; K1 +%d, K2 +0; repro_fallbacks_total{from=cuda/pyramid,"
+          "to=cuda/levels,site=pyramid.launch} = %d" % (L, hop))
+    clean = drive(lambda: R.dwt2(x, fuse="pyramid", **kw), k2=1)
+    r0 = RETRIES.value(site="execute.forward")
+    FJ.activate(FP.FaultPlan.from_text("execute.forward=corrupt:once"))
+    try:
+        got = drive(lambda: R.dwt2(x, fuse="pyramid", **kw), k2=2)
+    finally:
+        FJ.activate(None)
+    retries = RETRIES.value(site="execute.forward") - r0
+    check(equal(got, clean) and retries == 1,
+          f"execute.forward=corrupt:once: equal {equal(got, clean)}, "
+          f"retries {retries}")
+    print(f"execute.forward=corrupt:once: retried ({retries:.0f}), clean "
+          f"result bit for bit")
+    rec = drive(lambda: R.idwt2(clean, fuse="pyramid", **kwi), k3=1)
+    FJ.activate(FP.FaultPlan.from_text("execute.inverse=hang:once:0.05"))
+    try:
+        got = drive(lambda: R.idwt2(clean, fuse="pyramid", **kwi), k3=1)
+    finally:
+        FJ.activate(None)
+    check(torch.equal(got, rec), "execute.inverse=hang:once:0.05 changed "
+                                 "the result")
+    print("execute.inverse=hang:once:0.05: retried after 0.05 s, equal")
+    FJ.activate(FP.FaultPlan.from_text("execute.forward=raise:always"))
+    try:
+        R.dwt2(x, fuse="none", **dict(kw, backend="torch"))
+        exhausted = None
+    except DG.DegradationExhausted as e:
+        exhausted = e
+    finally:
+        FJ.activate(None)
+    check(exhausted is not None
+          and isinstance(exhausted.__cause__, FJ.InjectedFault),
+          f"torch/none under raise:always: {exhausted!r}")
+    print(f"torch/none under execute.forward=raise:always: "
+          f"DegradationExhausted, cause {exhausted.__cause__!r}")
+    os.environ[DG.ENABLE_ENV] = "off"
+    DG.reload()
+    FJ.activate(FP.FaultPlan.from_text("execute.forward=raise:always"))
+    try:
+        drive(lambda: R.dwt2(x, fuse="pyramid", **kw))
+        failed_fast = False
+    except FJ.InjectedFault:
+        failed_fast = True
+    finally:
+        FJ.activate(None)
+        del os.environ[DG.ENABLE_ENV]
+        DG.reload()
+    check(failed_fast and DG.CONFIG.enabled,
+          "REPRO_TORCH_RESILIENCE=off did not fail fast")
+    print(f"{DG.ENABLE_ENV}=off: the injected fault propagates (fail-fast)")
+    # the one hop above is this phase's own
+    check(fallbacks() == 1, f"recovery took {fallbacks()} hops, not 1: "
+                            f"{DG.FALLBACKS.series()}")
+    T.reset()
+
+    # -- 5. overhead ------------------------------------------------------
+    print("overhead (device): fuse,launches,timing,off_ms,counters_ms,"
+          "spans_ms (dwt2, CUDA events, median of 21, around one call on an "
+          "idle card or around each of 21 back-to-back calls; two passes, "
+          "the second in reverse order)")
+    for fuse in ("none", "pyramid"):
+        rows = {"idle": {}, "back_to_back": {}}
+        for mode in ("off", "counters", "spans", "spans", "counters",
+                     "off"):
+            T.set_mode(mode)
+            for timing, ms in (("idle", timer.ms),
+                               ("back_to_back", timer.back_to_back_ms)):
+                rows[timing].setdefault(mode, []).append(
+                    ms(lambda: R.dwt2(x, fuse=fuse, **kw), reps=21))
+        for timing, row in rows.items():
+            print(f"{fuse},{plans[fuse].launches},{timing},"
+                  + ",".join("/".join(f"{v:.4f}" for v in row[m])
+                             for m in ("off", "counters", "spans")))
+    host_overhead(torch, [{"src": str(ROOT / "src"),
+                           "modes": ("off", "counters", "spans"),
+                           "mods": _package_modules()}], device, gen)
+    fresh("overhead")
+    if cuda:
+        check(launched == expected,
+              f"phase 3d launched {launched}, expected {expected}")
+    print(f"phase 3d launches (driven paths): {launched}")
+    return launched
+
+
 def _pyramid_bytes(PP, pw, h, w):
     """Modelled and unique bytes of one fused-pyramid launch per image."""
     return PP.pyramid_hbm_bytes((h, w), 4, pw.level_blocks,
@@ -734,23 +1239,15 @@ def _pyramid_bytes(PP, pw, h, w):
 def _time_transforms(torch, R, PP, device, plans, x, timer):
     print("config,transform,backend,launches,ms,image_GB/s,model_bytes,"
           "model_bound_ms")
-    b = x.shape[0]
     times = {}
     for (scheme, fuse), plan in plans.items():
         common = dict(wavelet=MAIN["wavelet"], scheme=scheme, fuse=fuse,
                       device=device)
-        if plan.pyramid is not None:
-            spec = plan.pyramid
-            model = {op: _pyramid_bytes(PP, pw, *x.shape[-2:]).modelled * b
-                     for op, pw in (("fwd", spec.fwd_kernel),
-                                    ("inv", spec.inv_kernel))}
-        else:
-            # modelled bytes of the kernel path: every launch's windows
-            # and outputs plus the split/merge copy, summed over the levels
-            model = {op: sum(PP.scheme_hbm_bytes(
-                getattr(spec, f"{op}_programs"), spec.image_shape, 4,
-                spec.block) for spec in plan.level_specs) * b
-                for op in ("fwd", "inv")}
+        # modelled bytes of the kernel path (what the live roofline
+        # divides by): one fused-pyramid launch, or every launch's windows
+        # and outputs plus the split/merge copy, summed over the levels
+        model = {"fwd": PP.plan_hbm_bytes(plan, "forward"),
+                 "inv": PP.plan_hbm_bytes(plan, "inverse")}
         for backend in ("cuda", "torch"):
             pyr = R.dwt2(x, backend=backend, levels=MAIN["levels"], **common)
             f_ms = timer.ms(lambda: R.dwt2(x, backend=backend,
@@ -899,11 +1396,29 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
+def host_overhead_only(torch, srcs, device, cpu):
+    """``--host-overhead SRC [SRC ...]``: phase 3d's host-overhead step
+    alone, for the ``repro_torch`` of each ``src`` (say a parent's
+    checkout and this one), all held in this one process and timed
+    round by round."""
+    trees = [load_tree(src) for src in srcs]
+    out = host_overhead(torch, trees, device,
+                        torch.Generator().manual_seed(0))
+    print(json.dumps({"host_overhead_us": out}))
+    print("cpu rehearsal" if cpu else nvidia_smi())
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run every phase on the CPU at tiny sizes through "
                          "the plain versions (no kernel, no timings kept)")
+    ap.add_argument("--host-overhead", metavar="SRC", nargs="+",
+                    help="only time plan.execute on the host (phase 3d's "
+                         "host-overhead step) for the repro_torch package of "
+                         "each SRC, another checkout's src/ for one (a tree "
+                         "without telemetry is timed as it is)")
     args = ap.parse_args(argv)
     import torch
     cpu = args.cpu_rehearsal
@@ -911,28 +1426,42 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card (or --cpu-rehearsal)", file=sys.stderr)
         return 2
+    device = torch.device("cpu") if cpu else torch.device("cuda", 0)
+    if args.host_overhead:
+        return host_overhead_only(
+            torch, [Path(src).resolve() for src in args.host_overhead],
+            device, cpu)
     import repro_torch as R
     from repro_torch import compiler as C
+    from repro_torch import telemetry as T
     from repro_torch.compiler import conv as CV
     from repro_torch.kernels import polyphase as PP
     from repro_torch.kernels import pyramid_window as PW
     from repro_torch.kernels import tap_window as TW
-    device = torch.device("cpu") if cpu else torch.device("cuda", 0)
+    # the checks below read the defaults: counters on, the plane disarmed
+    T.set_mode("counters")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0) if not cpu else 'cpu'}",
           flush=True)
+    triton = importlib.util.find_spec("triton")
+    print(f"triton: {'found at ' + str(triton.origin) if triton else 'not found'}"
+          f" (importlib.util.find_spec)", flush=True)
     t_start = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
     phase_build(TW, PW, cpu)
     max_err = {"tap_window": phase_kernel(torch, C, TW, device, cpu, gen)}
+    no_fallbacks("phase 2")
     worst = phase_pyramid_kernel(torch, R, PW, device, cpu, gen)
     max_err.update(pyramid_forward=worst["pyramid_forward"],
                    pyramid_inverse=worst["pyramid_inverse"])
+    no_fallbacks("phase 2b")
     launched, plans, x = phase_main(torch, R, TW, PW, device, cpu, gen)
+    no_fallbacks("phase 3")
     timer = Timer(torch, device)
     launched["tap_window"] += phase_workloads(torch, R, TW, PW, CV, device,
                                               cpu, gen, x, timer)
+    no_fallbacks("phase 3c")
     if not cpu:
         want = {"tap_window": 2 * sum(
             v for k, v in EXPECTED_LAUNCHES.items() if k[1] != "pyramid")
@@ -941,7 +1470,11 @@ def main(argv=None):
             "pyramid_forward": 1, "pyramid_inverse": 1}
         check(launched == want, f"main path launched {launched}, expected "
                                 f"{want}")
+    for name, n in phase_telemetry(torch, R, TW, PW, device, cpu, gen, x,
+                                   timer).items():
+        launched[name] += n
     entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
+    no_fallbacks("phase 4")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     card = "cpu rehearsal" if cpu else nvidia_smi()
     print(card)

@@ -68,13 +68,22 @@ def compile_scheme_programs(wavelet: str, scheme: str, optimize: bool,
     """Compile a named scheme's programs, memoized process-wide.
 
     ``fuse="none"`` yields one program per barrier step; any other fuse
-    mode yields a single whole-chain program (one kernel launch).
+    mode yields a single whole-chain program (one kernel launch).  Each
+    compilation (a cache miss) is counted in ``repro_tap_compiles_total``
+    and runs inside a ``compile.scheme`` span.
     """
+    from repro_torch import telemetry as T
     from repro_torch.engine.plan import scheme_steps  # deferred: cycle
-    steps = scheme_steps(wavelet, scheme, optimize, inverse)
-    if fuse == "none":
-        return tuple(compile_steps((st,), opt) for st in steps)
-    return (compile_steps(steps, opt),)
+    T.counter("repro_tap_compiles_total",
+              "tap-program compilations (lru_cache misses of "
+              "compile_scheme_programs)",
+              labelnames=("scheme", "opt")).inc(scheme=scheme, opt=opt)
+    with T.span("compile.scheme", scheme=scheme, opt=opt, fuse=fuse,
+                inverse=inverse):
+        steps = scheme_steps(wavelet, scheme, optimize, inverse)
+        if fuse == "none":
+            return tuple(compile_steps((st,), opt) for st in steps)
+        return (compile_steps(steps, opt),)
 
 
 def program_stats(programs: Sequence[TapProgram]) -> dict:

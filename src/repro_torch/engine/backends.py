@@ -38,6 +38,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+from repro_torch import telemetry as T
 from repro_torch.engine import executor as X
 
 __all__ = ["Backend", "BackendError", "register_backend", "get_backend",
@@ -152,7 +153,10 @@ class Backend:
             details = []
             ll = x
             for spec in specs:
-                ll, hl, lh, hh = self.level_forward(ll, spec, key)
+                # one span per level, timed on the card for CUDA plans
+                with T.device_span("level.forward", key.device,
+                                   level=spec.index, backend=self.name):
+                    ll, hl, lh, hh = self.level_forward(ll, spec, key)
                 details.append((hl, lh, hh))
             return ll, tuple(details[::-1])
 
@@ -164,7 +168,9 @@ class Backend:
 
         def run(ll, details):
             for spec, (hl, lh, hh) in zip(reversed(specs), details):
-                ll = self.level_inverse((ll, hl, lh, hh), spec, key)
+                with T.device_span("level.inverse", key.device,
+                                   level=spec.index, backend=self.name):
+                    ll = self.level_inverse((ll, hl, lh, hh), spec, key)
             return ll
 
         return run

@@ -12,8 +12,15 @@ import threading
 from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
+from repro_torch import telemetry as T
 from repro_torch.engine.plan import (DwtPlan, PlanKey, build_plan,
                                      canonical_key, resolve_device)
+
+# process-wide cache traffic (every PlanCache instance records here;
+# instances also keep their own hit/miss ints for isolated .stats())
+CACHE_LOOKUPS = T.counter(
+    "repro_plan_cache_lookups_total",
+    "plan-cache lookups by result", labelnames=("result", "backend"))
 
 
 class PlanCache:
@@ -34,14 +41,19 @@ class PlanCache:
             if plan is not None:
                 self._plans.move_to_end(key)
                 self.hits += 1
+                CACHE_LOOKUPS.inc(result="hit", backend=key.backend)
                 return plan
         # build outside the lock: scheme algebra + compilation can be slow
-        plan = build(key)
+        with T.span("plan.cache_miss", backend=key.backend, fuse=key.fuse,
+                    scheme=key.scheme):
+            plan = build(key)
         with self._lock:
             if key in self._plans:      # a racing build won; reuse it
                 self.hits += 1
+                CACHE_LOOKUPS.inc(result="hit", backend=key.backend)
                 return self._plans[key]
             self.misses += 1
+            CACHE_LOOKUPS.inc(result="miss", backend=key.backend)
             self._plans[key] = plan
             while len(self._plans) > self.maxsize:
                 self._plans.popitem(last=False)
@@ -65,6 +77,10 @@ class PlanCache:
 
 
 _GLOBAL = PlanCache()
+
+
+def global_cache() -> PlanCache:
+    return _GLOBAL
 
 
 def get_plan(*, wavelet: str = "cdf97", scheme: str = "ns-polyconv",
@@ -135,3 +151,90 @@ def plan_cache_stats() -> dict:
 
 def clear_plan_cache() -> None:
     _GLOBAL.clear()
+
+
+# zeroed section schemas of the subsystems not ported yet: the auto,
+# serve and block_table sections stay at zero until the profiler and
+# serving slices are ported, as the reference's do when a subsystem fails
+# to load
+_SERVE_ZERO = {
+    "submitted": 0, "served": 0, "failed": 0, "rejected": 0,
+    "redispatched": 0, "worker_deaths": 0, "workers_spawned": 0,
+    "deadline_exceeded": 0, "quarantined": 0, "breaker_rejections": 0,
+    "batches": 0, "padded_images": 0, "mean_occupancy": None,
+    "latency_samples": 0, "latency_dropped": 0,
+    "p50_ms": None, "p99_ms": None, "img_per_s": None,
+}
+_AUTO_ZERO = {"predictions": 0, "store_hits": 0, "cold_fallbacks": 0,
+              "choices": {}}
+_BLOCK_TABLE_ZERO = {"device_fallbacks": 0, "path": ""}
+
+
+def _plan_row(key: PlanKey, plan: DwtPlan) -> dict:
+    row = {"wavelet": key.wavelet, "scheme": key.scheme,
+           "levels": key.levels, "shape": key.shape,
+           "backend": key.backend, "fuse": key.fuse,
+           "optimize": key.optimize, "tap_opt": key.tap_opt,
+           "num_steps": plan.num_steps, "launches": plan.launches}
+    compiled = plan.compiled_stats()
+    if compiled is not None:
+        row["compiled_macs"] = compiled["macs"]
+        row["compiled_nodes"] = compiled["nodes"]
+        row["compiled_halo"] = compiled["halo"]
+    if plan.pyramid is not None:
+        spec = plan.pyramid
+        halo = spec.fwd_kernel.programs[0].halo
+        row["pyramid_block"] = spec.block
+        # level 0's forward window in image space (each level of the
+        # port's kernels walks its own tile and halo)
+        row["pyramid_window"] = (spec.block[0] + 4 * halo,
+                                 spec.block[1] + 4 * halo)
+        row["pyramid_smem_bytes"] = spec.smem_bytes
+    if key.packet is not None:
+        row["packet_leaves"] = len(key.packet)
+        row["packet_depth"] = key.levels
+    if key.ndim != 2:
+        row["ndim"] = key.ndim
+    if plan.fallback is not None:
+        row["fallback"] = plan.fallback
+    return row
+
+
+def stats() -> dict:
+    """Engine-wide observability summary, in the reference's schema:
+    plan-cache hit/miss counters, the fault plane and its policies
+    (:mod:`repro_torch.faults`), fused-pyramid counters (executions,
+    shared-memory fallbacks — ``vmem_fallbacks``, the reference's key and
+    metric), the registered-backend capability matrix, the telemetry
+    registry/span-ring accounting (:mod:`repro_torch.telemetry`), the
+    zeroed ``auto`` / ``block_table`` / ``serve`` sections of subsystems
+    not ported yet, plus one row per cached plan (steps, kernel
+    launches, compiled tap-program op counts, pyramid geometry).  In a
+    plan row, the reference's ``pallas_calls`` is ``launches`` and
+    ``pyramid_vmem_bytes`` is ``pyramid_smem_bytes``.
+
+    >>> from repro_torch import engine
+    >>> s = engine.stats()
+    >>> sorted(s)
+    ['auto', 'backends', 'block_table', 'faults', 'plan_cache', 'plans', 'pyramid', 'serve', 'telemetry']
+    >>> [row["backend"] for row in s["backends"]]
+    ['conv', 'cuda', 'torch']
+    >>> sorted(s["pyramid"])
+    ['pyramid_kernel_launches', 'vmem_fallbacks']
+    """
+    from repro_torch import faults as F
+    from repro_torch.engine import backends as B
+    from repro_torch.engine import plan as P
+    with _GLOBAL._lock:
+        items = list(_GLOBAL._plans.items())
+    return {"plan_cache": _GLOBAL.stats(),
+            "faults": F.stats(),
+            "pyramid": {"pyramid_kernel_launches":
+                        P.COUNTERS["pyramid_kernel_launches"],
+                        "vmem_fallbacks": P.COUNTERS["smem_fallbacks"]},
+            "auto": dict(_AUTO_ZERO, choices={}),
+            "block_table": dict(_BLOCK_TABLE_ZERO),
+            "backends": list(B.capability_matrix()),
+            "serve": dict(_SERVE_ZERO),
+            "telemetry": T.stats(),
+            "plans": [_plan_row(key, plan) for key, plan in items]}

@@ -18,9 +18,11 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import telemetry as T
 from repro_torch.compiler import conv as CV
 from repro_torch.compiler import execute as CX
 from repro_torch.core import schemes as S
+from repro_torch.faults import inject as FI
 from repro_torch.kernels import polyphase as PP
 from repro_torch.kernels import pyramid_window as PW
 
@@ -134,8 +136,10 @@ def make_packet_forward(plan, backend):
     def run(x):
         nodes = {"": x}
         for path in internal:
-            children = backend.level_forward(nodes.pop(path),
-                                             specs[len(path)], key)
+            with T.device_span("packet.forward", key.device,
+                               depth=len(path), backend=backend.name):
+                children = backend.level_forward(nodes.pop(path),
+                                                 specs[len(path)], key)
             for c, arr in zip(PK.CHILDREN, children):
                 nodes[path + c] = arr
         return tuple(nodes[p] for p in leaves)
@@ -156,8 +160,10 @@ def make_packet_inverse(plan, backend):
         nodes = dict(zip(leaves, leaf_arrays))
         for path in reversed(internal):
             children = tuple(nodes.pop(path + c) for c in PK.CHILDREN)
-            nodes[path] = backend.level_inverse(children, specs[len(path)],
-                                                key)
+            with T.device_span("packet.inverse", key.device,
+                               depth=len(path), backend=backend.name):
+                nodes[path] = backend.level_inverse(children,
+                                                    specs[len(path)], key)
         return nodes[""]
 
     return run
@@ -178,9 +184,11 @@ def make_dwt3_forward(plan, backend):
         details = []
         v = x
         for spec in specs:
-            lo, hi = TP.temporal_forward(v, prog, cdt)
-            v, hl0, lh0, hh0 = backend.level_forward(lo, spec, key)
-            llh, hlh, lhh, hhh = backend.level_forward(hi, spec, key)
+            with T.device_span("level3.forward", key.device,
+                               level=spec.index, backend=backend.name):
+                lo, hi = TP.temporal_forward(v, prog, cdt)
+                v, hl0, lh0, hh0 = backend.level_forward(lo, spec, key)
+                llh, hlh, lhh, hhh = backend.level_forward(hi, spec, key)
             details.append((hl0, lh0, hh0, llh, hlh, lhh, hhh))
         return v, tuple(details[::-1])
 
@@ -198,9 +206,11 @@ def make_dwt3_inverse(plan, backend):
         v = ll
         for spec, det in zip(reversed(specs), details):
             hl0, lh0, hh0, llh, hlh, lhh, hhh = det
-            lo = backend.level_inverse((v, hl0, lh0, hh0), spec, key)
-            hi = backend.level_inverse((llh, hlh, lhh, hhh), spec, key)
-            v = TP.temporal_inverse(lo, hi, prog, cdt)
+            with T.device_span("level3.inverse", key.device,
+                               level=spec.index, backend=backend.name):
+                lo = backend.level_inverse((v, hl0, lh0, hh0), spec, key)
+                hi = backend.level_inverse((llh, hlh, lhh, hhh), spec, key)
+                v = TP.temporal_inverse(lo, hi, prog, cdt)
         return v
 
     return run
@@ -212,15 +222,21 @@ def make_dwt3_inverse(plan, backend):
 
 def make_pyramid_forward(plan):
     """Forward executor of a fused-pyramid plan: one launch for the whole
-    multi-level transform (details returned coarsest-first)."""
+    multi-level transform (details returned coarsest-first).  The launch
+    is the ``pyramid.launch`` fault-injection site and runs inside a
+    ``pyramid.launch`` span."""
     from repro_torch.engine import plan as PLAN
     kernel = plan.pyramid.fwd_kernel
+    key = plan.key
 
     def run(x):
-        PLAN.count("pyramid_kernel_launches")
+        PLAN.PYRAMID_LAUNCHES.inc()
+        FI.maybe_inject("pyramid.launch", op="forward", scheme=key.scheme)
         batch = x.shape[:-2]
         x3 = x.reshape((-1,) + x.shape[-2:]).contiguous()
-        ll, details = PW.pyramid_forward(kernel, x3)
+        with T.device_span("pyramid.launch", key.device, op="forward",
+                           levels=key.levels, scheme=key.scheme):
+            ll, details = PW.pyramid_forward(kernel, x3)
 
         def unflat(p):
             return p.reshape(batch + p.shape[-2:])
@@ -236,17 +252,21 @@ def make_pyramid_inverse(plan):
     details coarsest-first, as a :class:`Pyramid` holds them."""
     from repro_torch.engine import plan as PLAN
     kernel = plan.pyramid.inv_kernel
+    key = plan.key
 
     def run(ll, details):
-        PLAN.count("pyramid_kernel_launches")
+        PLAN.PYRAMID_LAUNCHES.inc()
+        FI.maybe_inject("pyramid.launch", op="inverse", scheme=key.scheme)
         batch = ll.shape[:-2]
 
         def flat(p):
             return p.reshape((-1,) + p.shape[-2:]).contiguous()
 
-        x = PW.pyramid_inverse(kernel, flat(ll),
-                               tuple(tuple(flat(d) for d in det)
-                                     for det in details[::-1]))
+        subbands = tuple(tuple(flat(d) for d in det)
+                         for det in details[::-1])
+        with T.device_span("pyramid.launch", key.device, op="inverse",
+                           levels=key.levels, scheme=key.scheme):
+            x = PW.pyramid_inverse(kernel, flat(ll), subbands)
         return x.reshape(batch + x.shape[-2:])
 
     return run

@@ -45,8 +45,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import os
-import threading
 from typing import Optional, Tuple
 
 import torch
@@ -54,10 +54,13 @@ import torch
 from repro_torch.engine.pyramid import Pyramid, Pyramid3, WaveletPacket2D
 
 from repro_torch import compiler as C
+from repro_torch import telemetry as T
 from repro_torch.core import optimize as O
 from repro_torch.core import schemes as S
 from repro_torch.engine import backends as B
 from repro_torch.engine import executor as X
+from repro_torch.faults import degrade as R
+from repro_torch.faults import inject as FI
 from repro_torch.kernels import polyphase as PP
 from repro_torch.kernels import pyramid_window as PW
 from repro_torch.kernels import tap_window as TW
@@ -70,22 +73,46 @@ COMPUTE_DTYPES = tuple(TW.COMPUTE_DTYPES)
 #: reference's $REPRO_PYRAMID_VMEM_LIMIT)
 PYRAMID_SMEM_LIMIT_ENV = "REPRO_TORCH_PYRAMID_SMEM_LIMIT"
 
-#: engine-wide fused-pyramid counters: executions of a pyramid plan's
-#: single-launch executor (on any device; the kernels' own launch counts
-#: are ``pyramid_window.FORWARD`` / ``.INVERSE``) and fuse="pyramid"
-#: plans demoted to fuse="levels" by the shared-memory guard
-COUNTERS = {"pyramid_kernel_launches": 0, "smem_fallbacks": 0}
+# engine-wide observability on the central telemetry registry (the
+# reference's metric names; surfaced through repro_torch.engine.stats()
+# and the Prometheus exposition).  The counters behind the dict views
+# below are gated=False: the views counted in every telemetry mode
+# before they were views, and still do
+PYRAMID_LAUNCHES = T.counter(
+    "repro_pyramid_kernel_launches_total",
+    "fused-pyramid executions (one K2 or K3 launch each on the card)",
+    gated=False)
+VMEM_FALLBACKS = T.counter(
+    "repro_vmem_fallbacks_total",
+    "fuse='pyramid' plans demoted to fuse='levels' by the shared-memory "
+    "guard", gated=False)
+PLAN_BUILDS = T.counter(
+    "repro_plan_builds_total", "DwtPlan builds (plan-cache misses + "
+    "direct build_plan calls)", labelnames=("backend", "fuse", "scheme"))
+EXECUTIONS = T.counter(
+    "repro_plan_executions_total", "plan executions",
+    labelnames=("op", "backend", "fuse", "scheme"))
+WORKLOAD_DEMOTIONS = T.counter(
+    "repro_workload_fuse_demotions_total",
+    "fuse='pyramid' plans demoted to fuse='levels' because the megakernel "
+    "is 2-D-pyramid-only (packet / 3-D workloads)",
+    labelnames=("workload", "backend"), gated=False)
+
+#: fused-pyramid counters as a dict-style view over the registry:
+#: executions of a pyramid plan's single-launch executor (on any device;
+#: the kernels' own launch counts are ``pyramid_window.FORWARD`` /
+#: ``.INVERSE``) and fuse="pyramid" plans demoted to fuse="levels" by the
+#: shared-memory guard (the reference's VMEM guard, same metric)
+COUNTERS = T.CounterAlias({
+    "pyramid_kernel_launches": ("repro_pyramid_kernel_launches_total", {}),
+    "smem_fallbacks": ("repro_vmem_fallbacks_total", {}),
+})
 #: fuse="pyramid" plans demoted to fuse="levels" because the fused-pyramid
-#: kernels are 2-D-pyramid-only, by workload (the reference's
-#: repro_workload_fuse_demotions_total)
-WORKLOAD_COUNTERS = {"packet": 0, "dwt3": 0}
-_COUNTERS_LOCK = threading.Lock()
-
-
-def count(name: str, counters: dict = COUNTERS) -> None:
-    """Add one to ``counters[name]`` (plans build and run on any thread)."""
-    with _COUNTERS_LOCK:
-        counters[name] += 1
+#: kernels are 2-D-pyramid-only, by workload (summed over backends)
+WORKLOAD_COUNTERS = T.CounterAlias({
+    "packet": ("repro_workload_fuse_demotions_total", {"workload": "packet"}),
+    "dwt3": ("repro_workload_fuse_demotions_total", {"workload": "dwt3"}),
+})
 
 
 def pyramid_smem_limit() -> int:
@@ -272,6 +299,18 @@ class DwtPlan:
         return (2 if self.key.ndim == 3 else 1,) * self.key.levels
 
     @property
+    def level_images(self) -> Tuple[int, ...]:
+        """Images in one run of each level's 2-D transform: the batch of a
+        2-D or packet plan, the frames of one temporal half-band of a 3-D
+        plan."""
+        k = self.key
+        if k.ndim == 3:
+            lead = math.prod(k.shape[:-3])
+            return tuple(lead * (k.shape[-3] >> (l + 1))
+                         for l in range(k.levels))
+        return (math.prod(k.shape[:-2]),) * k.levels
+
+    @property
     def launches(self) -> int:
         """Kernel launches per execution (forward or inverse) under this
         plan's fuse mode, as modelled by the backend."""
@@ -281,6 +320,31 @@ class DwtPlan:
         if str(t.device) != self.key.device:
             raise ValueError(f"plan built for device {self.key.device}, "
                              f"got {what} on {t.device}")
+
+    def compiled_stats(self) -> Optional[dict]:
+        """Aggregate tap-program cost of the finest forward level (the hot
+        kernel), or None when the plan walks raw matrices."""
+        progs = self.level_specs[0].fwd_programs
+        return C.program_stats(progs) if progs is not None else None
+
+    def _dispatch(self, op: str, args):
+        """One execution through the resilience plane, inside its
+        ``execute.*`` span (timed on the card for a CUDA plan), feeding
+        the live roofline when the span measured (without waiting for
+        the card)."""
+        k = self.key
+        EXECUTIONS.inc(op=op, backend=k.backend, fuse=k.fuse,
+                       scheme=k.scheme)
+        with T.device_span(f"execute.{op}", k.device, backend=k.backend,
+                           fuse=k.fuse, scheme=k.scheme,
+                           levels=k.levels) as sp:
+            # resilient dispatch: retry in place, then walk the
+            # capability-checked degradation chain (repro_torch.faults)
+            out = R.dispatch(self, op, args)
+        if sp.record is not None:
+            # timed on the card, it is resolved when the roofline is read
+            T.record_span(self, sp.record, op=op)
+        return out
 
     def execute(self, x: torch.Tensor):
         """Forward transform of ``x`` (shape must equal ``key.shape``).
@@ -293,7 +357,7 @@ class DwtPlan:
             raise ValueError(
                 f"plan built for shape {k.shape}, got {tuple(x.shape)}")
         self._check_device(x, "input")
-        out = self._forward(x)
+        out = self._dispatch("forward", (x,))
         if k.packet is not None:
             return WaveletPacket2D(paths=k.packet, leaves=list(out))
         ll, details = out
@@ -312,13 +376,14 @@ class DwtPlan:
                     f"plan built for packet leaves {k.packet}, "
                     f"got {tuple(pyr.paths)}")
             self._check_device(pyr.leaves[0], "packet")
-            return self._inverse(tuple(pyr.leaves))
+            return self._dispatch("inverse", (tuple(pyr.leaves),))
         if pyr.levels != k.levels:
             raise ValueError(
                 f"plan built for {k.levels} levels, "
                 f"pyramid has {pyr.levels}")
         self._check_device(pyr.ll, "pyramid")
-        return self._inverse(pyr.ll, tuple(tuple(d) for d in pyr.details))
+        return self._dispatch(
+            "inverse", (pyr.ll, tuple(tuple(d) for d in pyr.details)))
 
 
 def _resolve_level(index: int, h: int, w: int, key: PlanKey,
@@ -394,7 +459,7 @@ def _resolve_pyramid(key: PlanKey, h: int, w: int,
     limit = pyramid_smem_limit()
 
     def fallback(direction: str, why: str):
-        count("smem_fallbacks")
+        VMEM_FALLBACKS.inc()
         return None, (f"{direction} pyramid: {why}; executing as "
                       f"fuse='levels'")
 
@@ -438,8 +503,18 @@ def build_plan(key: PlanKey) -> DwtPlan:
     build, with the offending PlanKey field named.  Packet and 3-D keys
     are checked in the reference's order with its texts, and demote
     ``fuse="pyramid"`` to ``"levels"`` (stated in ``plan.fallback``).
+    The build runs inside a ``plan.build`` span and is the
+    ``plan.build`` fault-injection site.
     """
     key = canonical_key(key)
+    with T.span("plan.build", backend=key.backend, fuse=key.fuse,
+                scheme=key.scheme, levels=key.levels):
+        FI.maybe_inject("plan.build", backend=key.backend, fuse=key.fuse)
+        return _build_plan(key)
+
+
+def _build_plan(key: PlanKey) -> DwtPlan:
+    PLAN_BUILDS.inc(backend=key.backend, fuse=key.fuse, scheme=key.scheme)
     backend = B.get_backend(key.backend)
     if key.fuse not in FUSE_MODES:
         raise ValueError(f"unknown fuse mode {key.fuse!r}; "
@@ -480,7 +555,7 @@ def build_plan(key: PlanKey) -> DwtPlan:
             # the fused-pyramid kernels run the 2-D LL recursion only —
             # packet trees branch into all four children and the 3-D
             # level interleaves a temporal pass
-            count(workload, WORKLOAD_COUNTERS)
+            WORKLOAD_DEMOTIONS.inc(workload=workload, backend=key.backend)
             key = dataclasses.replace(key, fuse="levels")
             demoted = (f"fuse='pyramid' is the 2-D pyramid megakernel; "
                        f"{workload} plan executes as fuse='levels'")

@@ -10,7 +10,9 @@ model drives the hand-written CUDA window kernel
 * :func:`_pick_block` — block edge selection per axis;
 * :func:`scheme_hbm_bytes` — the device-memory traffic model of one
   transform level on this kernel; :func:`pyramid_hbm_bytes` — that of
-  one fused-pyramid launch;
+  one fused-pyramid launch; :func:`plan_hbm_bytes` — that of one
+  execution of a plan (what the live roofline and the chip script
+  divide by);
 * :func:`pyramid_out_levels` — the fused-pyramid kernels' subband order;
 * :func:`apply_steps_cuda` — one launch per step (``fuse="none"``, the
   paper's barrier count) or one per level (``fuse="scheme"``).
@@ -18,6 +20,7 @@ model drives the hand-written CUDA window kernel
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 from repro_torch.core import optimize as O
@@ -129,6 +132,49 @@ def scheme_hbm_bytes(programs: Sequence, shape: Tuple[int, int],
         total += (read + write) * itemsize
     if split_merge:
         total += 2 * h * w * itemsize
+    return total
+
+
+def plan_hbm_bytes(plan, op: str = "forward") -> int:
+    """Modelled device-memory bytes of one ``op`` execution
+    (``"forward"`` or ``"inverse"``) of a plan, batch included.
+
+    * ``"cuda"`` with a fused-pyramid spec: :func:`pyramid_hbm_bytes`
+      (modelled) of the direction's kernel, per image;
+    * ``"cuda"`` per level: :func:`scheme_hbm_bytes` of each level's
+      launches, once per run of the level (``plan.level_runs``: a packet
+      node, a temporal half-band); a 3-D level adds its temporal pass,
+      which reads the level's volume once and writes its two half-bands
+      once;
+    * ``"torch"`` and ``"conv"``: the unique bytes, input read once and
+      every output written once (``2 x numel x itemsize``) — the port
+      has no traffic model of its own for the roll and ``F.conv2d``
+      paths.
+    """
+    import torch  # the I/O dtype's size; the module stays framework-free
+    key = plan.key
+    itemsize = getattr(torch, key.dtype).itemsize
+    numel = math.prod(key.shape)
+    if key.backend != "cuda":
+        return 2 * numel * itemsize
+    inverse = op == "inverse"
+    h, w = key.shape[-2:]
+    if plan.pyramid is not None:
+        pw = plan.pyramid.inv_kernel if inverse else plan.pyramid.fwd_kernel
+        per_image = pyramid_hbm_bytes((h, w), itemsize, pw.level_blocks,
+                                      [p.halo for p in pw.programs])
+        return per_image.modelled * (numel // (h * w))
+    total = 0
+    for spec, runs, images in zip(plan.level_specs, plan.level_runs,
+                                  plan.level_images):
+        programs = spec.inv_programs if inverse else spec.fwd_programs
+        hl, wl = spec.image_shape
+        if key.ndim == 3:
+            # the temporal pass: the level's volume (both half-bands'
+            # frames) read once, the two half-bands written once
+            total += 2 * (2 * images) * hl * wl * itemsize
+        total += runs * images * scheme_hbm_bytes(programs, (hl, wl),
+                                                  itemsize, spec.block)
     return total
 
 

@@ -349,3 +349,120 @@ def test_conv_backend_runs_full_fp32_whatever_the_tf32_flag(cuda_device,
         assert setting() == before
     finally:
         cudnn.allow_tf32 = old[0]
+
+
+# -- telemetry and the fault plane on the card --------------------------
+
+@pytest.fixture
+def port_planes():
+    """The port's telemetry and fault planes at their defaults (counters,
+    disarmed) around a test, restored after (the card runs these tests
+    without conftest)."""
+    from repro_torch import telemetry as T
+    from repro_torch.faults import inject as FJ
+    prev_mode, prev_plan = T.mode(), FJ.activate(None)
+    T.set_mode("counters")
+    T.reset()
+    yield T
+    FJ.activate(prev_plan)
+    T.set_mode(prev_mode)
+    T.reset()
+
+
+@pytest.mark.parametrize("fuse", ("pyramid", "levels"))
+def test_spans_give_device_time(cuda_device, port_planes, fuse):
+    """A span around device work is timed on the card: it holds the
+    CUDA-event time of the launch it wraps, and the execute span holds
+    its children."""
+    T = port_planes
+    x = torch.randn(4, 512, 512, device=cuda_device)
+    R.dwt2(x, levels=3, fuse=fuse, device=cuda_device)      # warm up
+    T.set_mode("spans")
+    with T.device_span("outer", cuda_device) as sp:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        R.dwt2(x, levels=3, fuse=fuse, device=cuda_device)
+        e1.record()
+    e1.synchronize()
+    inner = e0.elapsed_time(e1) / 1e3
+    assert sp.duration >= inner > 0
+    recs = T.TRACER.records()
+    (ex,) = [r for r in recs if r.name == "execute.forward"]
+    kids = [r for r in recs if r.parent_id == ex.span_id]
+    assert ex.clock == "cuda" and all(k.clock == "cuda" for k in kids)
+    assert [k.name for k in kids] == (["pyramid.launch"] if fuse == "pyramid"
+                                      else ["level.forward"] * 3)
+    assert sp.duration >= ex.dur_s >= max(k.dur_s for k in kids) > 0
+
+
+def test_pyramid_launch_fault_degrades_to_levels_on_the_card(cuda_device,
+                                                            port_planes):
+    from repro_torch.faults import degrade as DG
+    from repro_torch.faults import inject as FJ
+    from repro_torch.faults import plan as FP
+    from repro_torch.kernels import pyramid_window as PW
+    x = torch.randn(2, 256, 256, device=cuda_device)
+    want = R.dwt2(x, levels=3, fuse="levels", device=cuda_device)
+    R.dwt2(x, levels=3, fuse="pyramid", device=cuda_device)   # plan built
+    FJ.activate(FP.FaultPlan.from_text("pyramid.launch=raise:always"))
+    n_k1, n_k2 = TW.KERNEL.launches, PW.FORWARD.launches
+    got = R.dwt2(x, levels=3, fuse="pyramid", device=cuda_device)
+    torch.cuda.synchronize()
+    FJ.activate(None)
+    assert TW.KERNEL.launches - n_k1 == 3
+    assert PW.FORWARD.launches == n_k2
+    for g, w in zip([got.ll] + [d for t in got.details for d in t],
+                    [want.ll] + [d for t in want.details for d in t]):
+        assert torch.equal(g, w)
+    assert DG.FALLBACKS.value(**{"from": "cuda/pyramid",
+                                 "to": "cuda/levels",
+                                 "site": "pyramid.launch"}) == 1
+
+
+def test_counters_mode_adds_no_synchronisation(cuda_device, port_planes):
+    T = port_planes
+    x = torch.randn(2, 256, 256, device=cuda_device)
+
+    def run():
+        for fuse in ("pyramid", "none"):
+            pyr = R.dwt2(x, levels=3, fuse=fuse, device=cuda_device)
+            R.idwt2(pyr, fuse=fuse, device=cuda_device)
+
+    run()                               # plans built, tables uploaded
+    torch.cuda.synchronize()
+    assert len(T.synchronising_calls(lambda: float(x[0, 0, 0]))) >= 1
+    counts = {}
+    for mode in ("off", "counters", "off", "counters"):
+        T.set_mode(mode)
+        counts.setdefault(mode, []).append(
+            len(T.synchronising_calls(run)))
+    assert counts["counters"] == counts["off"], counts
+
+
+def test_spans_mode_waits_for_the_card_only_when_read(cuda_device,
+                                                      port_planes):
+    """Spans record CUDA events and resolve them when read: executing in
+    spans mode adds no synchronisation, and the roofline read after it
+    divides by device time (at most the card's 3.35 TB/s)."""
+    T = port_planes
+    x = torch.randn(8, 512, 512, device=cuda_device)
+
+    def run():
+        for fuse in ("pyramid", "levels"):
+            pyr = R.dwt2(x, levels=3, fuse=fuse, device=cuda_device)
+            R.idwt2(pyr, fuse=fuse, device=cuda_device)
+
+    run()
+    torch.cuda.synchronize()
+    counts = {}
+    for mode in ("off", "spans", "off", "spans"):
+        T.set_mode(mode)
+        counts.setdefault(mode, []).append(
+            len(T.synchronising_calls(run)))
+    assert counts["spans"] == counts["off"], counts
+    rows = T.roofline()
+    assert {(r["fuse"], r["op"]) for r in rows} == {
+        (f, op) for f in ("pyramid", "levels")
+        for op in ("forward", "inverse")}
+    assert all(0 < r["gbps"] <= 3350 for r in rows), rows
