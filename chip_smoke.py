@@ -71,10 +71,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
              phase's one fallback; ``execute.forward=corrupt:once``
              retried once, bit for bit; ``torch/none`` exhausts the
              chain; resilience off fails fast; and the overhead of each
-             mode, on the card and on the host.  Phases 2, 2b, 3, 3c and
-             4, and each step of 3d but the recovery, end with no
+             mode, on the card and on the host.  Phases 2, 2b, 3, 3c,
+             3e and 4, and each step of 3d but the recovery, end with no
              fallback counted (``repro_fallbacks_total``, read directly:
              it counts in every telemetry mode);
+3e. tiling — the main path's images over a 4x4 grid of 512^2 tiles
+             (margin 32, 576^2 windows) at ns-polyconv "none", "levels"
+             and "pyramid", and a 6x6 overhanging grid of 384^2 tiles at
+             sep-lifting dd137 "levels": tiled ``dwt2``/``idwt2`` against
+             the monolithic ones (max |diff| printed, CROSS_TOL held, bit
+             for bit expected), exact launches (K1 6 / 3, one K2 or K3),
+             the round trip, and a second call hitting the cache for the
+             tiled plan and its window plan; ``stream_dwt2`` of a 1 GiB
+             16384^2 memmapped image written under ``build/chip_smoke/``
+             (1024^2 tiles, ``max_inflight=2``) against the monolithic
+             ``dwt2``, with its peak device memory below the image's
+             size, every staging buffer pinned and at most one
+             synchronising call per band; on a 4096^2 image the band
+             checkpoint killed after two bands and resumed bit for bit,
+             ``stream.host_gather`` / ``stream.drain`` faults retried to
+             a clean result, ``stream.h2d_dispatch`` failing fast, and a
+             ``tiling.halo_gather`` fault on a tiled pyramid retried
+             once; then tiled beside monolithic times (back-to-back CUDA
+             events, median of 21) split into the ``tile.*`` device
+             spans, with the modelled bytes;
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
@@ -143,6 +163,15 @@ VOLUME = dict(shape=(1, 64, 1024, 1024), levels=3)
 DWT3_LAUNCHES = {"none": 12, "levels": 6}        # 2 half-bands per level
 CONV_LAUNCHES = {("ns-polyconv", "none"): 6, ("ns-polyconv", "levels"): 3,
                  ("sep-lifting", "none"): 24}
+# phase 3e: the main path's images over a 4x4 grid of 512^2 tiles (and a
+# 6x6 overhanging grid of 384^2), a 1 GiB memmapped image streamed in
+# 1024-row bands, a 4-band checkpointed stream
+TILED = dict(tiles=(512, 512), margin=32, overhang=(384, 384))
+TILED_LAUNCHES = {"none": (6, 0), "levels": (3, 0), "pyramid": (0, 1)}
+STREAM = dict(size=16384, tiles=(1024, 1024), max_inflight=2,
+              fault_seed=3)
+CHECKPOINT = dict(size=4096, tiles=(1024, 1024))
+TIMING_REPS = 21
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 REPS = 7
@@ -1230,6 +1259,338 @@ def phase_telemetry(torch, R, TW, PW, device, cpu, gen, x, timer):
     return launched
 
 
+def _planes_np_equal(torch, device, got, want):
+    """Max |diff| between a host (numpy) pyramid and a device one, plane
+    by plane (shapes must agree); the CROSS_TOL check is the caller's."""
+    import numpy as np
+    worst, ok = 0.0, True
+    for g, w in zip(_flat(got), _flat(want), strict=True):
+        check(tuple(g.shape) == tuple(w.shape),
+              f"plane shapes {tuple(g.shape)} vs {tuple(w.shape)}")
+        g = torch.from_numpy(np.ascontiguousarray(g)).to(device)
+        worst = max(worst, max_abs(g, w))
+        ok = ok and rel_violation(g, w, **CROSS_TOL["float32"]) <= 0
+    return worst, ok
+
+
+def phase_tiling(torch, R, TW, PW, device, cpu, gen, x, timer):
+    """Phase 3e: tiled transforms at the main path's width, the
+    out-of-core stream of a 1 GiB memmapped image, the band checkpoint
+    and the stream's faults on the card, and the tiled times; returns
+    the launches of each kernel it drove."""
+    print("== phase 3e: tiling and out-of-core streaming", flush=True)
+    import gc
+    import shutil
+    import numpy as np
+    from repro_torch import telemetry as T
+    from repro_torch.faults import inject as FJ
+    from repro_torch.faults import plan as FP
+    from repro_torch.faults.policy import RETRIES
+    from repro_torch.kernels import polyphase as PP
+    from repro_torch.tiling import open_checkpoint
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    counters = kernels(TW, PW)
+    launched = {name: 0 for name in counters}
+    L, wav = MAIN["levels"], MAIN["wavelet"]
+    tiles = (32, 32) if cpu else TILED["tiles"]
+    over = (24, 24) if cpu else TILED["overhang"]
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    T.set_mode("counters")
+
+    def drive(fn, k1=0, k2=0, k3=0, exact=True):
+        """One driven path with every launch counter at 0 just before it
+        and read just after; on the card the counts must be exactly
+        ``k1``/``k2``/``k3`` (unless a retry makes them vary)."""
+        for k in counters.values():
+            k.launches = 0
+        out = fn()
+        sync()
+        got = {n: k.launches for n, k in counters.items()}
+        want = {"tap_window": k1, "pyramid_forward": k2,
+                "pyramid_inverse": k3}
+        for n in launched:
+            launched[n] += got[n]
+        if cuda and exact:
+            check(got == want, f"phase 3e launched {got}, expected {want}")
+        return out
+
+    def held(name, got, want):
+        """Max |diff| of two pyramids (or images); bit for bit expected,
+        CROSS_TOL held."""
+        got = _flat(got) if hasattr(got, "ll") else [got]
+        want = _flat(want) if hasattr(want, "ll") else [want]
+        check([tuple(a.shape) for a in got] == [tuple(b.shape) for b in want]
+              and all(bool(torch.isfinite(a).all()) for a in got),
+              f"{name}: shapes or finiteness")
+        d = max(max_abs(a, b) for a, b in zip(got, want))
+        check(all(rel_violation(a, b, **CROSS_TOL["float32"]) <= 0
+                  for a, b in zip(got, want)),
+              f"{name}: off by {d}")
+        return d
+
+    # -- 1. tiled at the main path's width --------------------------------
+    kw = dict(wavelet=wav, levels=L, scheme="ns-polyconv", backend="cuda",
+              device=device)
+    ikw = {k: v for k, v in kw.items() if k != "levels"}
+    plans = {}
+    for fuse, (k1, kp) in TILED_LAUNCHES.items():
+        plan = R.get_plan(shape=tuple(x.shape), fuse=fuse, tiles=tiles, **kw)
+        plans[fuse] = plan
+        g = plan.grid
+        if not cpu:
+            check(g.grid_shape == (4, 4) and g.margin == TILED["margin"]
+                  and g.window_shape == (576, 576),
+                  f"tiled {fuse}: grid {g.describe()}")
+        check(plan.launches == k1 + kp and plan.pyramid is None,
+              f"tiled {fuse}: plan.launches {plan.launches}")
+        mono = R.dwt2(x, fuse=fuse, **kw)
+        tiled = drive(lambda: R.dwt2(x, fuse=fuse, tiles=tiles, **kw),
+                      k1=k1, k2=kp)
+        d_fwd = held(f"tiled {fuse} dwt2 vs monolithic", tiled, mono)
+        rec_mono = R.idwt2(mono, fuse=fuse, **ikw)
+        rec = drive(lambda: R.idwt2(mono, fuse=fuse, tiles=tiles, **ikw),
+                    k1=k1, k3=kp)
+        d_inv = held(f"tiled {fuse} idwt2 vs monolithic", rec, rec_mono)
+        rec_t = drive(lambda: R.idwt2(tiled, fuse=fuse, tiles=tiles, **ikw),
+                      k1=k1, k3=kp)
+        rt = max_abs(rec_t, x)
+        check(rel_violation(rec_t, x, **ROUNDTRIP_TOL["float32"]) <= 0,
+              f"tiled {fuse}: round trip off by {rt}")
+        before = R.plan_cache_stats()
+        drive(lambda: R.dwt2(x, fuse=fuse, tiles=tiles, **kw), k1=k1, k2=kp)
+        after = R.plan_cache_stats()
+        check(after["hits"] == before["hits"] + 2
+              and after["misses"] == before["misses"],
+              f"tiled {fuse}: second call's cache traffic {before} -> "
+              f"{after} (the tiled plan and its window plan must both hit)")
+        print(f"tiled {fuse:7s} {g.describe()}: launches fwd/inv "
+              f"{k1 + kp}/{k1 + kp} (K1 {k1}, K2/K3 {kp}); vs monolithic "
+              f"max |diff| forward {d_fwd!r} inverse {d_inv!r}"
+              f"{' (bit for bit)' if d_fwd == d_inv == 0 else ''}; round "
+              f"trip {rt!r}; second call: 2 cache hits, 0 misses")
+        del mono, tiled, rec_mono, rec, rec_t
+    okw = dict(kw, scheme="sep-lifting", wavelet="dd137")
+    oikw = {k: v for k, v in okw.items() if k != "levels"}
+    plan = R.get_plan(shape=tuple(x.shape), fuse="levels", tiles=over, **okw)
+    g = plan.grid
+    check(g.grid_shape[0] * g.tile[0] > x.shape[-2],
+          f"overhang tiling {g.describe()} does not overhang")
+    mono = R.dwt2(x, fuse="levels", **okw)
+    tiled = drive(lambda: R.dwt2(x, fuse="levels", tiles=over, **okw), k1=L)
+    d_fwd = held("overhang dwt2 vs monolithic", tiled, mono)
+    rec = drive(lambda: R.idwt2(mono, fuse="levels", tiles=over, **oikw),
+                k1=L)
+    d_inv = held("overhang idwt2 vs monolithic", rec,
+                 R.idwt2(mono, fuse="levels", **oikw))
+    print(f"overhang sep-lifting dd137 levels {g.describe()}: vs "
+          f"monolithic max |diff| forward {d_fwd!r} inverse {d_inv!r}")
+    del mono, tiled, rec
+
+    # -- 2. the out-of-core stream of a memmapped image --------------------
+    n = 256 if cpu else STREAM["size"]
+    st_tiles = (64, 64) if cpu else STREAM["tiles"]
+    path = out_dir / "stream_image.f32"
+    rng = np.random.default_rng(0)
+    disk = np.memmap(path, dtype=np.float32, mode="w+", shape=(n, n))
+    for r0 in range(0, n, 1024):
+        rows = min(1024, n - r0)
+        disk[r0:r0 + rows] = rng.standard_normal((rows, n),
+                                                 dtype=np.float32)
+    disk.flush()
+    del disk
+    img = np.memmap(path, dtype=np.float32, mode="r", shape=(n, n))
+    skw = dict(wavelet=wav, levels=L, scheme="ns-polyconv", tiles=st_tiles,
+               fuse="levels", max_inflight=STREAM["max_inflight"],
+               device=device)
+    splan = R.get_plan(shape=(n, n), tiles=st_tiles, fuse="levels",
+                       wavelet=wav, levels=L, scheme="ns-polyconv",
+                       device=device)
+    nr, nc = splan.grid.grid_shape
+    wh, ww = splan.grid.window_shape
+    band_bytes = nc * wh * ww * 4
+    k_band = splan.launches
+    box = {}
+    if cuda:
+        # tensors earlier phases left in reference cycles (an exception
+        # kept with its traceback holds its frame's locals) are freed
+        # first, so that the peak below is the stream's and the main
+        # path's images'
+        gc.collect()
+        before_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        calls = drive(lambda: T.synchronising_calls(
+            lambda: box.setdefault("pyr", R.stream_dwt2(img, **skw))),
+            k1=nr * k_band)
+        peak = torch.cuda.max_memory_allocated()
+        check(peak < img.nbytes,
+              f"stream peak device memory {peak} B ({before_bytes} B "
+              f"allocated before it) is not below the image's "
+              f"{img.nbytes} B")
+        check(len(calls) <= nr, f"stream synchronised {len(calls)} times "
+                                f"for {nr} bands: {calls}")
+        print(f"stream {n}x{n} fp32 ({img.nbytes} B memmap), tiles "
+              f"{st_tiles}: {nr} bands of {nc} windows {wh}x{ww} "
+              f"({band_bytes} B per band); peak device memory {peak} B "
+              f"({before_bytes} B allocated before it); synchronising calls "
+              f"{len(calls)} {sorted(set(calls))}")
+    else:
+        box["pyr"] = drive(lambda: R.stream_dwt2(img, **skw),
+                           k1=nr * k_band)
+    slots = splan._stream_slots
+    check(len(slots) == STREAM["max_inflight"] + 1,
+          f"{len(slots)} staging slots")
+    if cuda:
+        check(all(s.stage.is_pinned() and all(o.is_pinned() for o in s.out)
+                  for s in slots), "a staging buffer is not pinned")
+        print(f"staging: {len(slots)} slots, every buffer pinned")
+    T.set_mode("spans")
+    T.reset()
+    t0 = time.perf_counter()
+    drive(lambda: R.stream_dwt2(img, **skw), k1=nr * k_band)
+    wall = time.perf_counter() - t0
+    rows = {r["name"]: r for r in T.span_summary()}
+    T.set_mode("counters")
+    print(f"stream wall {wall:.4f} s (spans mode); span totals s: " + ", ".join(
+        f"{nm} {rows[nm]['total_s']:.4f} ({rows[nm]['count']})"
+        for nm in ("stream.dwt2", "stream.host_gather",
+                   "stream.h2d_dispatch", "stream.drain") if nm in rows))
+    T.reset()
+    mono = R.dwt2(torch.from_numpy(np.array(img)), fuse="levels", wavelet=wav,
+                  levels=L, scheme="ns-polyconv", device=device)
+    d, ok = _planes_np_equal(torch, device, box.pop("pyr"), mono)
+    check(ok, f"stream vs monolithic off by {d}")
+    print(f"stream vs monolithic dwt2 ({n}x{n}, fuse levels): max |diff| "
+          f"{d!r}{' (bit for bit)' if d == 0 else ''}")
+    del mono, img
+
+    # -- 3. checkpoint and the stream's faults on the card ----------------
+    m = 128 if cpu else CHECKPOINT["size"]
+    ck_tiles = (32, 32) if cpu else CHECKPOINT["tiles"]
+    ck_img = rng.standard_normal((m, m), dtype=np.float32)
+    ckw = dict(skw, tiles=ck_tiles)
+    nb = -(-m // ck_tiles[0])
+    ref = drive(lambda: R.stream_dwt2(ck_img, **ckw), k1=nb * k_band)
+    ck = out_dir / "checkpoint"
+    shutil.rmtree(ck, ignore_errors=True)
+    drive(lambda: R.stream_dwt2(ck_img, checkpoint=str(ck), **ckw),
+          k1=nb * k_band)
+    jp = ck / "journal.jsonl"
+    lines = jp.read_text().splitlines()
+    check(len(lines) == nb, f"journal has {len(lines)} records")
+    jp.write_text("\n".join(lines[:2]) + "\n")
+    man = json.loads((ck / "manifest.json").read_text())["config"]
+    ck2 = open_checkpoint(str(ck), man)
+    check(ck2.completed == {0, 1}, f"resumable bands {ck2.completed}")
+    cut = 2 * (ck_tiles[0] >> L)
+    ck2.ll[cut:] = -777.0
+    for plane in ck2.details[-1]:
+        plane[2 * (ck_tiles[0] >> 1):] = -777.0
+        plane.flush()
+    ck2.ll.flush()
+    resumed = drive(lambda: R.stream_dwt2(ck_img, checkpoint=str(ck), **ckw),
+                    k1=(nb - 2) * k_band)
+    check(all(np.array_equal(a, b) for a, b in zip(_flat(resumed),
+                                                   _flat(ref))),
+          "resumed stream differs from the uninterrupted one")
+    print(f"checkpoint {m}x{m}, {nb} bands: killed after 2, rows poisoned, "
+          f"resumed ({nb - 2} bands recomputed) equal bit for bit")
+    del resumed, ck2
+    r0 = sum(row["value"] for row in RETRIES.series())
+    FJ.activate(FP.FaultPlan.from_text(
+        "stream.host_gather=0.3,stream.drain=0.3", seed=STREAM["fault_seed"]))
+    try:
+        got = drive(lambda: R.stream_dwt2(ck_img, retries=4, **ckw),
+                    exact=False)
+        fired = FJ.stats()["plan"]["sites"]
+    finally:
+        FJ.activate(None)
+    retried = sum(row["value"] for row in RETRIES.series()) - r0
+    check(all(np.array_equal(a, b) for a, b in zip(_flat(got), _flat(ref)))
+          and retried > 0,
+          f"retried stream: {retried} retries, result differs")
+    print(f"stream.host_gather / stream.drain at 0.3 (seed "
+          f"{STREAM['fault_seed']}): fired "
+          f"{fired['stream.host_gather']['fired']} / "
+          f"{fired['stream.drain']['fired']}, {retried} retries, equal bit "
+          f"for bit")
+    FJ.activate(FP.FaultPlan.from_text("stream.h2d_dispatch=once"))
+    try:
+        drive(lambda: R.stream_dwt2(ck_img, retries=0, **ckw))
+        raised = None
+    except FJ.InjectedFault as e:
+        raised = repr(e)        # not the exception: its frames hold tensors
+    finally:
+        FJ.activate(None)
+    check(raised is not None, "stream.h2d_dispatch=once with retries=0 "
+                              "did not raise InjectedFault")
+    print(f"stream.h2d_dispatch=once, retries=0: raised {raised}")
+    clean = R.dwt2(x, fuse="pyramid", tiles=tiles, **kw)
+    r0 = sum(row["value"] for row in RETRIES.series())
+    FJ.activate(FP.FaultPlan.from_text("tiling.halo_gather=raise:once"))
+    try:
+        got = drive(lambda: R.dwt2(x, fuse="pyramid", tiles=tiles, **kw),
+                    k2=1)
+    finally:
+        FJ.activate(None)
+    retried = sum(row["value"] for row in RETRIES.series()) - r0
+    check(retried == 1 and all(torch.equal(a, b) for a, b in
+                               zip(_flat(got), _flat(clean))),
+          f"tiling.halo_gather=raise:once: {retried} retries")
+    print("tiling.halo_gather=raise:once on tiled pyramid dwt2: retried "
+          "once, equal to a clean call bit for bit")
+    del clean, got, ref
+    no_fallbacks("phase 3e")
+
+    # -- 4. times: tiled vs monolithic, and the tiled spans ----------------
+    reps = TIMING_REPS
+    print(f"tiled times (ms; CUDA events around each of {reps} calls made "
+          f"back to back, median; spans: device-timed tile.* spans, mean "
+          f"over the same number of calls)")
+    print("fuse,op,tiled_ms,monolithic_ms,ratio,halo_gather_ms,"
+          "window_transform_ms,stitch_ms,tiled_model_bytes,"
+          "monolithic_model_bytes,tiled_bound_ms")
+    for fuse, plan in plans.items():
+        mplan = R.get_plan(shape=tuple(x.shape), fuse=fuse, **kw)
+        pyr = R.dwt2(x, fuse=fuse, **kw)
+        runs = {
+            "forward": (lambda: R.dwt2(x, fuse=fuse, tiles=tiles, **kw),
+                        lambda: R.dwt2(x, fuse=fuse, **kw)),
+            "inverse": (lambda: R.idwt2(pyr, fuse=fuse, tiles=tiles, **ikw),
+                        lambda: R.idwt2(pyr, fuse=fuse, **ikw))}
+        for op, (tiled_fn, mono_fn) in runs.items():
+            for k in counters.values():
+                k.launches = 0
+            t_ms = timer.back_to_back_ms(tiled_fn, reps=reps)
+            m_ms = timer.back_to_back_ms(mono_fn, reps=reps)
+            T.set_mode("spans")
+            T.reset()
+            for _ in range(reps):
+                tiled_fn()
+            sync()
+            spans = {}
+            for r in T.TRACER.records():
+                if r.name.startswith("tile.") and r.labels.get("op") == op:
+                    spans.setdefault(r.name, []).append(r.dur_s * 1e3)
+            T.set_mode("counters")
+            T.reset()
+            for k in counters.values():
+                k.launches = 0      # timing launches are not the path's
+            mean = {nm: statistics.mean(v) for nm, v in spans.items()}
+            tb = PP.plan_hbm_bytes(plan, op)
+            mb = PP.plan_hbm_bytes(mplan, op)
+            print(f"{fuse},{op},{t_ms:.4f},{m_ms:.4f},{t_ms / m_ms:.4f},"
+                  f"{mean.get('tile.halo_gather', float('nan')):.4f},"
+                  f"{mean.get('tile.window_transform', float('nan')):.4f},"
+                  f"{mean.get('tile.stitch', float('nan')):.4f},{tb},{mb},"
+                  f"{tb / HBM_BYTES_PER_S * 1e3:.4f}")
+        del pyr
+    no_fallbacks("phase 3e times")
+    print(f"phase 3e launches (driven paths): {launched}")
+    return launched
+
+
 def _pyramid_bytes(PP, pw, h, w):
     """Modelled and unique bytes of one fused-pyramid launch per image."""
     return PP.pyramid_hbm_bytes((h, w), 4, pw.level_blocks,
@@ -1473,6 +1834,10 @@ def main(argv=None):
     for name, n in phase_telemetry(torch, R, TW, PW, device, cpu, gen, x,
                                    timer).items():
         launched[name] += n
+    for name, n in phase_tiling(torch, R, TW, PW, device, cpu, gen, x,
+                                timer).items():
+        launched[name] += n
+    no_fallbacks("phase 3e")
     entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
     no_fallbacks("phase 4")
     print(f"total {time.perf_counter() - t_start:.1f} s")

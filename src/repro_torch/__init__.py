@@ -6,8 +6,11 @@ by hand-written CUDA kernels (``"cuda"``,
 :mod:`repro_torch.kernels.tap_window`) and by grouped ``F.conv2d`` calls
 (``"conv"``).  The 2-D pyramid (``dwt2``/``idwt2``), wavelet packets
 (``wpt2``/``iwpt2``/``best_basis``) and the t+2D volume transform
-(``dwt3``/``idwt3``) run on every backend.  Entry points run on the card
-unless the caller passes ``device="cpu"``.
+(``dwt3``/``idwt3``) run on every backend, monolithic or over a grid of
+halo-padded tiles (``tiles=``, ``dwt2_tiled``/``idwt2_tiled``); images
+larger than the card stream band by band from host memory
+(``stream_dwt2``).  Entry points run on the card unless the caller
+passes ``device="cpu"``.
 
     >>> import torch, repro_torch
     >>> pyr = repro_torch.dwt2(torch.ones(16, 16), levels=2, device="cpu")
@@ -23,10 +26,11 @@ from repro_torch.engine import (BackendError, DwtPlan, PlanCache, PlanKey,
                                 Pyramid, Pyramid3, WaveletPacket2D,
                                 available_backends, clear_plan_cache,
                                 get_plan, plan_cache_stats)
+from repro_torch.tiling import dwt2_tiled, idwt2_tiled, stream_dwt2
 
 __all__ = ["BackendError", "DwtPlan", "PacketTree", "PlanCache", "PlanKey",
            "Pyramid", "Pyramid3", "WaveletPacket2D", "available_backends",
-           "best_basis", "clear_plan_cache", "dwt2", "dwt3",
-           "flatten_pyramid", "get_plan", "idwt2", "idwt3", "iwpt2",
-           "plan_cache_stats", "unflatten_pyramid", "validate_finite",
-           "wpt2"]
+           "best_basis", "clear_plan_cache", "dwt2", "dwt2_tiled", "dwt3",
+           "flatten_pyramid", "get_plan", "idwt2", "idwt2_tiled", "idwt3",
+           "iwpt2", "plan_cache_stats", "stream_dwt2", "unflatten_pyramid",
+           "validate_finite", "wpt2"]

@@ -181,6 +181,11 @@ def _plan_row(key: PlanKey, plan: DwtPlan) -> dict:
         row["compiled_macs"] = compiled["macs"]
         row["compiled_nodes"] = compiled["nodes"]
         row["compiled_halo"] = compiled["halo"]
+    if plan.grid is not None:
+        row["tiles"] = key.tiles
+        row["tile_count"] = plan.tile_count
+        row["tile_grid"] = plan.grid.grid_shape
+        row["halo_margin"] = plan.grid.margin
     if plan.pyramid is not None:
         spec = plan.pyramid
         halo = spec.fwd_kernel.programs[0].halo
@@ -209,7 +214,9 @@ def stats() -> dict:
     registry/span-ring accounting (:mod:`repro_torch.telemetry`), the
     zeroed ``auto`` / ``block_table`` / ``serve`` sections of subsystems
     not ported yet, plus one row per cached plan (steps, kernel
-    launches, compiled tap-program op counts, pyramid geometry).  In a
+    launches, compiled tap-program op counts, tile grid, pyramid
+    geometry).  A tiled plan's ``launches`` are its window plan's, which
+    the row reads through the plan cache.  In a
     plan row, the reference's ``pallas_calls`` is ``launches`` and
     ``pyramid_vmem_bytes`` is ``pyramid_smem_bytes``.
 

@@ -36,10 +36,16 @@ Wavelet-packet plans (``PlanKey.packet``, the canonical leaf tuple of a
 :class:`~repro_torch.core.packets.PacketTree`) and 3-D (t+2D) plans
 (``PlanKey.ndim=3``) run on every backend through its level hooks; they
 demote ``fuse="pyramid"`` to ``"levels"`` (counted in
-:data:`WORKLOAD_COUNTERS`), as the reference does.  The one field of the
-reference's PlanKey this port does not execute yet (``tiles``) stays in
-the key and raises :class:`~repro_torch.engine.backends.BackendError` at
-plan build, naming the field.
+:data:`WORKLOAD_COUNTERS`), as the reference does.
+
+Tiled plans (``PlanKey.tiles``, 2-D pyramids only) carry a
+:class:`~repro_torch.tiling.grid.TileGrid` (``plan.grid``) whose exact
+halo margins come from the plan's compiled programs; their executors
+(:mod:`repro_torch.tiling.api`) gather the tile
+windows, run them through a monolithic *window plan* from the same cache
+(tiles stacked onto the batch dims) and stitch the cores.  The outer
+plan resolves no fused-pyramid kernel: its window plan does, under its
+own shared-memory guard.  A tiled plan's launches are its window plan's.
 """
 from __future__ import annotations
 
@@ -164,7 +170,8 @@ class PlanKey:
     compute_dtype: str = "float32"
     tap_opt: str = "full"
     device: str = "cuda"
-    # tiled execution: not ported yet, must stay None
+    # (tile_h, tile_w) core size for tiled execution, or None (monolithic).
+    # Part of the key so tiled plans cache exactly like monolithic ones.
     tiles: Optional[Tuple[int, int]] = None
     # canonical packet-tree leaf paths (repro_torch.core.packets.PacketTree),
     # or None for the plain LL-recursion pyramid; when set, ``levels``
@@ -275,6 +282,9 @@ class DwtPlan:
     # shared-memory fallback (the plan then executes as fuse="levels")
     pyramid: Optional[PyramidSpec] = None
     fallback: Optional[str] = None      # why the pyramid kernel was skipped
+    # TileGrid when key.tiles is set (executors then come from
+    # repro_torch.tiling)
+    grid: Optional[object] = None
 
     @property
     def num_steps(self) -> int:
@@ -311,9 +321,19 @@ class DwtPlan:
         return (math.prod(k.shape[:-2]),) * k.levels
 
     @property
+    def tile_count(self) -> Optional[int]:
+        """Tiles of a tiled plan's grid, None for a monolithic plan."""
+        return self.grid.count if self.grid is not None else None
+
+    @property
     def launches(self) -> int:
         """Kernel launches per execution (forward or inverse) under this
-        plan's fuse mode, as modelled by the backend."""
+        plan's fuse mode, as modelled by the backend; a tiled plan's are
+        those of its forward window plan (fetched through the plan
+        cache): the whole grid is one batched window execution."""
+        if self.grid is not None:
+            from repro_torch.tiling import api as TA
+            return TA.window_plan(self, "forward").launches
         return self.backend.launches(self)
 
     def _check_device(self, t: torch.Tensor, what: str) -> None:
@@ -559,10 +579,6 @@ def _build_plan(key: PlanKey) -> DwtPlan:
             key = dataclasses.replace(key, fuse="levels")
             demoted = (f"fuse='pyramid' is the 2-D pyramid megakernel; "
                        f"{workload} plan executes as fuse='levels'")
-    if key.tiles is not None:
-        raise B.BackendError(
-            f"tiled execution (PlanKey.tiles={key.tiles!r}) is not ported "
-            f"to repro_torch yet")
     min_rank = 3 if key.ndim == 3 else 2
     want = "(..., T, H, W)" if key.ndim == 3 else "(..., H, W)"
     if len(key.shape) < min_rank:
@@ -597,8 +613,28 @@ def _build_plan(key: PlanKey) -> DwtPlan:
         plan._forward = X.make_dwt3_forward(plan, backend)
         plan._inverse = X.make_dwt3_inverse(plan, backend)
         return plan
-    if key.fuse == "pyramid" and backend.pyramid_kernel:
+    if key.fuse == "pyramid" and backend.pyramid_kernel \
+            and key.tiles is None:
         plan.pyramid, plan.fallback = _resolve_pyramid(key, h, w)
+
+    if key.tiles is not None:
+        # deferred: tiling sits above the engine and imports it back
+        from repro_torch.tiling import api as TA
+        from repro_torch.tiling import grid as TG
+        # under tap_opt="off" the window kernel runs the lowered raw walk,
+        # whose reach may be tighter than the summed step halos the
+        # reference's kernel path sizes its margins by: keep those (wider,
+        # as exact) margins, so both packages tile alike
+        plan.grid = TG.build_grid(
+            (h, w), key.tiles, key.levels, specs,
+            raw_walk=backend.window_kernel and key.tap_opt == "off")
+        # the executors build their index tensors and fetch their window
+        # plans at first call: a plan fetched only for its grid geometry
+        # (stream_dwt2, the dist transport) builds neither
+        plan._forward = TA.make_tiled_forward(plan)
+        plan._inverse = TA.make_tiled_inverse(plan)
+        return plan
+
     plan._forward = backend.make_forward(plan)
     plan._inverse = backend.make_inverse(plan)
     return plan

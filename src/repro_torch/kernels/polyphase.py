@@ -149,12 +149,15 @@ def plan_hbm_bytes(plan, op: str = "forward") -> int:
     * ``"torch"`` and ``"conv"``: the unique bytes, input read once and
       every output written once (``2 x numel x itemsize``) — the port
       has no traffic model of its own for the roll and ``F.conv2d``
-      paths.
+      paths;
+    * a tiled plan (``plan.grid`` set): :func:`tiled_hbm_bytes`.
     """
     import torch  # the I/O dtype's size; the module stays framework-free
     key = plan.key
     itemsize = getattr(torch, key.dtype).itemsize
     numel = math.prod(key.shape)
+    if plan.grid is not None:
+        return tiled_hbm_bytes(plan, op, itemsize)
     if key.backend != "cuda":
         return 2 * numel * itemsize
     inverse = op == "inverse"
@@ -176,6 +179,36 @@ def plan_hbm_bytes(plan, op: str = "forward") -> int:
         total += runs * images * scheme_hbm_bytes(programs, (hl, wl),
                                                   itemsize, spec.block)
     return total
+
+
+def tiled_hbm_bytes(plan, op: str, itemsize: int) -> int:
+    """Modelled device-memory bytes of one ``op`` execution of a tiled
+    plan: its window plan's modelled bytes (:func:`plan_hbm_bytes` of the
+    stacked windows), plus the halo gather — the image (forward) or the
+    pyramid's planes (inverse) read once, every window written once —
+    plus the stitch — every tile's core read once, the pyramid's planes
+    (forward) or the image (inverse) written once.  A pyramid holds as
+    many samples as its image, and the cores of a grid as many as the
+    grid covers (``T x th x tw``, overhang included)."""
+    from repro_torch.tiling import api as TA  # deferred: tiling -> engine
+    key, grid = plan.key, plan.grid
+    h, w = key.shape[-2:]
+    lead = math.prod(key.shape[:-2])
+    (th, tw), tiles = grid.tile, grid.count
+    image = lead * h * w
+    cores = lead * tiles * th * tw
+    if op == "inverse":
+        mi, L = grid.inv_margin, key.levels
+        sizes = [(th >> (l + 1)) + 2 * (mi >> (l + 1)) for l in range(L)]
+        sizes_w = [(tw >> (l + 1)) + 2 * (mi >> (l + 1)) for l in range(L)]
+        per_tile = (sum(3 * a * b for a, b in zip(sizes, sizes_w))
+                    + sizes[-1] * sizes_w[-1])
+    else:
+        wh, ww = grid.window_shape
+        per_tile = wh * ww
+    windows = lead * tiles * per_tile
+    window_bytes = plan_hbm_bytes(TA.window_plan(plan, op), op)
+    return window_bytes + (image + windows + cores + image) * itemsize
 
 
 def apply_steps_cuda(steps: Sequence[StepSpec], planes, *,

@@ -51,8 +51,12 @@ def plan_macs(plan, op: str = "forward") -> Optional[int]:
     """Total compiled MACs of one ``op`` execution (all levels, every run
     of a level, batch included), or None when the plan walks raw
     matrices (``"torch"`` under ``tap_opt="off"``: no compiled programs
-    to count)."""
+    to count).  A tiled plan's MACs are its window plan's (the halo
+    recompute included)."""
     from repro_torch import compiler as C
+    if plan.grid is not None:
+        from repro_torch.tiling import api as TA  # deferred: tiling->engine
+        plan = TA.window_plan(plan, op)
     total = 0
     for spec, runs, images in zip(plan.level_specs, plan.level_runs,
                                   plan.level_images):

@@ -466,3 +466,67 @@ def test_spans_mode_waits_for_the_card_only_when_read(cuda_device,
         (f, op) for f in ("pyramid", "levels")
         for op in ("forward", "inverse")}
     assert all(0 < r["gbps"] <= 3350 for r in rows), rows
+
+
+# -- tiling and streaming on the card ------------------------------------
+
+def _all_planes(pyr):
+    return [pyr.ll] + [d for det in pyr.details for d in det]
+
+
+@pytest.mark.parametrize("fuse,k1,k2", [("none", 4, 0), ("levels", 2, 0),
+                                        ("pyramid", 0, 1)])
+def test_tiled_equals_monolithic_with_exact_launches(cuda_device, fuse, k1,
+                                                     k2):
+    """Tiled dwt2/idwt2 on "cuda" (non-dividing 96x96 tiles of a 2x256x320
+    batch) equals the monolithic transform bit for bit, one batched
+    window execution: K1 twice per level at "none", once at "levels", one
+    K2 (K3) at "pyramid"."""
+    from repro_torch.kernels import pyramid_window as PW
+    x = torch.randn(2, 256, 320, generator=torch.Generator().manual_seed(5)
+                    ).to(cuda_device)
+    kw = dict(levels=2, fuse=fuse, backend="cuda", device=cuda_device)
+    plan = R.get_plan(shape=tuple(x.shape), tiles=(96, 96), **kw)
+    assert plan.launches == k1 + k2
+    mono = R.dwt2(x, **kw)
+    n = (TW.KERNEL.launches, PW.FORWARD.launches, PW.INVERSE.launches)
+    tiled = R.dwt2(x, tiles=(96, 96), **kw)
+    torch.cuda.synchronize()
+    assert (TW.KERNEL.launches - n[0], PW.FORWARD.launches - n[1]) == (k1, k2)
+    for p, q in zip(_all_planes(mono), _all_planes(tiled)):
+        assert torch.equal(p, q)
+    ikw = {k: v for k, v in kw.items() if k != "levels"}
+    n = (TW.KERNEL.launches, PW.INVERSE.launches)
+    rec = R.idwt2(mono, tiles=(96, 96), **ikw)
+    torch.cuda.synchronize()
+    assert (TW.KERNEL.launches - n[0], PW.INVERSE.launches - n[1]) == (k1, k2)
+    assert torch.equal(rec, R.idwt2(mono, **ikw))
+    torch.testing.assert_close(rec, x, **ROUNDTRIP_TOL)
+
+
+def test_stream_staging_buffers_are_pinned(cuda_device):
+    import numpy as np
+    from repro_torch import engine as E
+    img = np.random.default_rng(6).standard_normal((512, 512)).astype(
+        np.float32)
+    R.stream_dwt2(img, levels=2, tiles=(128, 128), device=cuda_device)
+    plan = E.get_plan(shape=(512, 512), levels=2, tiles=(128, 128),
+                      fuse="levels", device=cuda_device)
+    slots = plan._stream_slots
+    assert len(slots) == 3                      # max_inflight + 1
+    for s in slots:
+        assert s.stage.is_pinned()
+        assert all(o.is_pinned() for o in s.out)
+
+
+def test_stream_equals_monolithic(cuda_device):
+    import numpy as np
+    img = np.random.default_rng(7).standard_normal((2048, 2048)).astype(
+        np.float32)
+    for fuse in ("none", "levels"):
+        pyr = R.stream_dwt2(img, levels=3, tiles=(512, 512), fuse=fuse,
+                            device=cuda_device)
+        mono = R.dwt2(torch.from_numpy(img), levels=3, fuse=fuse,
+                      device=cuda_device)
+        for p, q in zip(_all_planes(mono), _all_planes(pyr)):
+            assert np.array_equal(p.cpu().numpy(), q)

@@ -284,7 +284,8 @@ def test_plan_rejects_input_on_another_device():
 
 
 @pytest.mark.parametrize("kw,field", [
-    (dict(tiles=(8, 8)), "PlanKey.tiles"),
+    # a tiled plan keeps every backend check of its key
+    (dict(tiles=(8, 8), backend="cuda", dtype="float64"), "PlanKey.dtype"),
     # the reference's XLA conv path is backend "conv" here
     (dict(backend="xla"), "'conv'"),
     (dict(backend="auto"), "PlanKey.backend"),
@@ -297,6 +298,20 @@ def test_unported_features_raise_at_plan_build(kw, field):
                     **kw)
     assert field in str(err.value)
     assert "PlanKey." in str(err.value)
+
+
+def test_tiled_plan_builds_and_reports_its_grid():
+    """``PlanKey.tiles`` builds on every backend: the plan carries its
+    grid and tile count, and launches what its window plan launches."""
+    for backend, launches in (("torch", 0), ("cuda", 2), ("conv", 2)):
+        plan = TE.get_plan(shape=(2, 32, 32), levels=1, tiles=(8, 8),
+                           backend=backend, device="cpu",
+                           cache=TE.PlanCache())
+        assert plan.tile_count == 16 and plan.grid.grid_shape == (4, 4)
+        assert plan.launches == launches
+    mono = TE.get_plan(shape=(2, 32, 32), device="cpu",
+                       cache=TE.PlanCache())
+    assert mono.grid is None and mono.tile_count is None
 
 
 def test_torch_backend_runs_pyramid_as_level_chain():

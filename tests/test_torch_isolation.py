@@ -25,6 +25,15 @@ for fuse in ("none", "pyramid"):
                            device="cpu")
     rec = repro_torch.idwt2(pyr, fuse=fuse, device="cpu")
     assert torch.allclose(rec, torch.ones(2, 16, 16), atol=1e-4)
+    # the tiling slice: tiled plans and the out-of-core stream
+    tiled = repro_torch.dwt2(torch.ones(2, 32, 32), levels=2, fuse=fuse,
+                             tiles=(16, 16), device="cpu")
+    rec = repro_torch.idwt2(tiled, fuse=fuse, tiles=(16, 16), device="cpu")
+    assert torch.allclose(rec, torch.ones(2, 32, 32), atol=1e-4)
+    streamed = repro_torch.stream_dwt2(torch.ones(32, 32).numpy(), levels=2,
+                                       tiles=(16, 16), fuse=fuse,
+                                       device="cpu")
+    assert streamed.ll.shape == (8, 8)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
