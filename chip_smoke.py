@@ -95,6 +95,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
              once; then tiled beside monolithic times (back-to-back CUDA
              events, median of 21) split into the ``tile.*`` device
              spans, with the modelled bytes;
+3f. serving — the profiler, ``backend="auto"`` and a ``DwtServer`` on
+             2048x2048 fp32 images (cdf97, ns-polyconv, 3 levels), with
+             the store and block table in ``build/chip_smoke/phase3f/``:
+             an empty store resolves "auto" cold to cuda/pyramid; the
+             store is warmed over every candidate (cuda none/scheme/
+             levels/pyramid, conv none/scheme/levels, torch's four) at
+             batches 1, 2, 4, 8 (median of 5 back-to-back synchronised
+             calls, one row per record with its spread and modelled
+             bytes); every batch size then resolves from the store at
+             the records' argmin; an unseen 8x1024x1024 shape resolves
+             from the model, printed beside a measurement and
+             ``repro_model_time_ratio``; a two-worker server answers 32
+             dwt2 and 32 idwt2 requests, each equal to a direct dwt2 of
+             its image at the resolved configuration bit for bit (to
+             CROSS_TOL on "conv") and round-tripping, with 0 plan-cache
+             misses after warmup, p50/p99, img/s and occupancy, and the
+             ``serve.*`` spans of a batch; a worker killed mid-burst (all
+             served, one replacement); a block-table sweep (three
+             targets at "levels", the fastest saved, the rebuilt plan at
+             its blocks, outputs compared with the default block's, a
+             foreign-fingerprint entry skipped and counted); and a
+             ``torch.profiler`` trace of a warmed server holding one
+             pinned host-to-device copy per forward batch;
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
@@ -1591,6 +1614,332 @@ def phase_tiling(torch, R, TW, PW, device, cpu, gen, x, timer):
     return launched
 
 
+# phase 3f: the profiler, backend="auto" and serving at the main path's
+# width (B=8 buckets of 2048^2 fp32 images, 3 levels, cdf97, ns-polyconv)
+SERVE = dict(max_batch=8, requests=32, burst=16, unseen=(8, 1024, 1024),
+             block_targets=((32, 64), (32, 32), (16, 64)), reps=5)
+
+
+def phase_serving(torch, R, TW, PW, device, cpu, gen):
+    """Phase 3f: the profiler store warmed over every candidate and
+    padded batch size, "auto" resolved cold, from the store and from the
+    model, a block-table sweep, and a DwtServer on the card answering
+    forward and inverse requests bit for bit against direct calls, with
+    one pinned h2d copy per forward batch and a worker killed mid-burst;
+    returns the launches of each kernel it drove."""
+    print("== phase 3f: the profiler, backend=\"auto\" and serving",
+          flush=True)
+    import asyncio
+    import os
+    import shutil
+    import numpy as np
+    from repro_torch import engine as E
+    from repro_torch import profiler as PF
+    from repro_torch import telemetry as T
+    from repro_torch.engine import autotune as AT
+    from repro_torch.profiler import auto as PA
+    from repro_torch.serve import (BucketSpec, DwtServer, ServeConfig,
+                                   bucket_batches, serve_stats)
+    from repro_torch.serve import metrics as SM
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    counters = kernels(TW, PW)
+    launched = {name: 0 for name in counters}
+    L, wav, scheme = MAIN["levels"], MAIN["wavelet"], "ns-polyconv"
+    size = 64 if cpu else MAIN["size"]
+    max_batch = 2 if cpu else SERVE["max_batch"]
+    reps = 1 if cpu else SERVE["reps"]
+    unseen = (2, 32, 32) if cpu else SERVE["unseen"]
+    n_req = 4 if cpu else SERVE["requests"]
+    work = ROOT / "build" / "chip_smoke" / "phase3f"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = {"REPRO_TORCH_PROFILE_STORE": str(work / "store.jsonl"),
+           "REPRO_TORCH_BLOCK_TABLE": str(work / "table.json")}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    AT.clear_cache()
+    E.clear_plan_cache()
+    T.set_mode("counters")
+    PA.reset_counters()
+    SM.reset()
+    card = "cpu rehearsal" if cpu else nvidia_smi()
+    dev = str(E.resolve_device(device))
+
+    def drive(fn):
+        """One driven step with every launch counter at 0 just before it
+        and read just after; returns (its result, its launches)."""
+        for k in counters.values():
+            k.launches = 0
+        out = fn()
+        sync()
+        got = {n: k.launches for n, k in counters.items()}
+        for n in launched:
+            launched[n] += got[n]
+        return out, got
+
+    def key_of(shape):
+        return E.canonical_key(E.PlanKey(
+            wavelet=wav, scheme=scheme, levels=L, shape=tuple(shape),
+            dtype="float32", backend="auto", optimize=False, fuse="none",
+            boundary="periodic", device=dev))
+
+    try:
+        # 1. cold start: an empty store resolves by the device's rule
+        cold = PF.choose(key_of((max_batch, size, size)))
+        want = ("torch", "levels") if cpu else ("cuda", "pyramid")
+        print(f"cold: {cold.backend}/{cold.fuse} source={cold.source}")
+        check((cold.backend, cold.fuse) == want
+              and cold.source == "heuristic",
+              f"cold auto resolved {cold}, expected {want} from the rule")
+
+        # 2. warm the store: every candidate at every padded batch size
+        batches = bucket_batches(max_batch)
+        recs, got = drive(lambda: PF.warm_batches(
+            batches, (size, size), wavelet=wav, scheme=scheme, levels=L,
+            reps=reps, device=dev))
+        n_cand = len(PF.enumerate_candidates(key_of((1, size, size))))
+        check(len(recs) == n_cand * len(batches),
+              f"warm_batches wrote {len(recs)} records, expected "
+              f"{n_cand} x {len(batches)}")
+        print(f"store: {len(recs)} records ({n_cand} candidates x batches "
+              f"{batches}, median of {reps} back-to-back calls each, "
+              f"wall time per call), launches {got}; {card}")
+        print("batch,backend,fuse,time_ms,spread,launches,model_bytes")
+        for r in recs:
+            print(f"{r.shape[0]},{r.backend},{r.fuse},{r.time_s * 1e3:.4f},"
+                  f"{r.meta['spread']:.3f},{r.launches},{r.hbm_bytes}")
+
+        # 3. every batch size now resolves from the store, at the argmin
+        choices = {}
+        for b in batches:
+            c = PF.choose(key_of((b, size, size)))
+            best = min((r for r in recs if r.shape[0] == b),
+                       key=lambda r: (r.time_s, r.backend, r.fuse))
+            choices[b] = c
+            print(f"auto b={b}: {c.backend}/{c.fuse} source={c.source} "
+                  f"{c.predicted_s * 1e3:.4f} ms")
+            check(c.source == "store" and (c.backend, c.fuse) ==
+                  (best.backend, best.fuse),
+                  f"b={b} resolved {c}, store argmin {best.backend}/"
+                  f"{best.fuse}")
+
+        # 4. an unseen shape: the model predicts, a measurement compares
+        plan = E.get_plan(wavelet=wav, scheme=scheme, levels=L,
+                          shape=unseen, backend="auto", device=dev)
+        check(plan.auto.source == "model",
+              f"unseen {unseen} resolved from {plan.auto.source}")
+        rec, got = drive(lambda: PF.profile_plan(plan, reps=reps,
+                                                 record=False))
+        (row,) = [r for r in T.roofline() if r["op"] == "profile"
+                  and r["backend"] == plan.key.backend
+                  and r["fuse"] == plan.key.fuse]
+        print(f"model: {unseen} -> {plan.key.backend}/{plan.key.fuse}, "
+              f"predicted {plan.auto.predicted_s * 1e3:.4f} ms, measured "
+              f"{rec.time_s * 1e3:.4f} ms (spread {rec.meta['spread']:.3f}),"
+              f" repro_model_time_ratio {row['model_time_ratio']:.4f}, "
+              f"launches {got}")
+
+        # 6. serve: a bucket resolved from the warmed store
+        resolved = {b: E.get_plan(**BucketSpec(
+            shape=(size, size), levels=L, backend="auto").key(
+                "dwt2", dev).plan_kwargs(b)).key for b in batches}
+        configs = {(k.backend, k.fuse, k.tap_opt) for k in resolved.values()}
+        rng = np.random.default_rng(18)
+        imgs = [rng.standard_normal((size, size)).astype(np.float32)
+                for _ in range(n_req)]
+        cfg = ServeConfig(max_batch=max_batch, num_workers=2, device=dev)
+        srv = DwtServer(cfg)
+        srv.warmup([BucketSpec(shape=(size, size), levels=L,
+                               backend="auto")], warm_profiler=False)
+        SM.reset()
+        misses0 = E.plan_cache_stats()["misses"]
+
+        async def serve_all():
+            async with srv:
+                fwd = await asyncio.gather(*[srv.submit(
+                    im, levels=L, backend="auto") for im in imgs])
+                inv = await asyncio.gather(*[srv.submit_inverse(
+                    p, backend="auto") for p in fwd])
+                return fwd, inv
+        t0 = time.perf_counter()
+        (fwd, inv), got = drive(lambda: asyncio.run(
+            asyncio.wait_for(serve_all(), 300)))
+        wall = time.perf_counter() - t0
+        st = serve_stats()
+        misses = E.plan_cache_stats()["misses"] - misses0
+        check(misses == 0, f"{misses} plan-cache misses after warmup")
+        no_fallbacks("phase 3f, serve")
+        check(st["served"] == 2 * n_req and st["failed"] == 0,
+              f"served {st}")
+        def served_ok(im, pyr):
+            """The served pyramid equals a direct dwt2 of its one image at
+            a configuration "auto" resolved for the bucket: bit for bit,
+            or within CROSS_TOL on "conv" (F.conv2d picks its algorithm
+            per batch size)."""
+            served = [torch.from_numpy(a) for a in _flat(pyr)]
+            for backend, fuse, tap_opt in sorted(configs):
+                want = [a.cpu() for a in _flat(R.dwt2(
+                    torch.from_numpy(im).to(device), wavelet=wav, levels=L,
+                    scheme=scheme, backend=backend, fuse=fuse,
+                    tap_opt=tap_opt, device=device))]
+                if all(torch.equal(a, b) for a, b in zip(want, served)) or (
+                        backend == "conv" and all(
+                            rel_violation(b, a, **CROSS_TOL["float32"]) <= 0
+                            for a, b in zip(want, served))):
+                    return True
+            return False
+
+        diff = 0.0
+        for im, pyr, back in zip(imgs, fwd, inv):
+            check(served_ok(im, pyr), f"a served pyramid differs from every "
+                  f"direct dwt2 at the resolved configurations "
+                  f"{sorted(configs)}")
+            check(bool(np.isfinite(back).all()), "inverse not finite")
+            check(rel_violation(torch.from_numpy(back), torch.from_numpy(im),
+                                **ROUNDTRIP_TOL["float32"]) <= 0,
+                  "served inverse does not round-trip")
+            diff = max(diff, float(np.abs(back - im).max()))
+        print(f"serve: {2 * n_req} requests ({n_req} dwt2 + {n_req} idwt2) "
+              f"in {st['batches']} batches, auto -> {sorted(configs)}; "
+              f"equal to direct dwt2 (bit for bit off \"conv\"), round "
+              f"trip max |diff| {diff}; "
+              f"plan-cache misses after warmup {misses}; launches {got}")
+        print(f"serve metrics: p50 {st['p50_ms']:.4f} ms, p99 "
+              f"{st['p99_ms']:.4f} ms, {st['img_per_s']:.1f} img/s, mean "
+              f"occupancy {st['mean_occupancy']:.3f}, wall {wall:.3f} s; "
+              f"{card}")
+        del fwd, inv
+
+        # where a served batch's time goes: the serve.* spans (host
+        # clock) and the plan's execute.* spans (device clock)
+        srv_s = DwtServer(cfg)
+
+        async def spanned():
+            async with srv_s:
+                return await asyncio.gather(*[srv_s.submit(
+                    im, levels=L, backend="auto") for im in imgs])
+        T.set_mode("spans")
+        T.TRACER.clear()
+        try:
+            _, got = drive(lambda: asyncio.run(
+                asyncio.wait_for(spanned(), 300)))
+            rows = [r for r in T.span_summary()
+                    if r["name"].startswith(("serve.", "execute."))]
+        finally:
+            T.set_mode("counters")
+        print(f"serve spans ({n_req} dwt2 requests, spans mode): "
+              f"name,count,clock,total_ms,mean_ms,max_ms; launches {got}")
+        for r in rows:
+            print(f"{r['name']},{r['count']},{r['clock']},"
+                  f"{r['total_s'] * 1e3:.4f},{r['mean_s'] * 1e3:.4f},"
+                  f"{r['max_s'] * 1e3:.4f}")
+
+        # 7. a worker dies during a burst: every request still served
+        burst = imgs[:(4 if cpu else SERVE["burst"])]
+        srv_d = DwtServer(cfg)
+        SM.reset()
+
+        async def killed():
+            async with srv_d:
+                victim = srv_d.inject_worker_failure()
+                out = await asyncio.gather(*[srv_d.submit(
+                    im, levels=L, backend="auto") for im in burst])
+                return out, victim, srv_d.stats()
+        (out, victim, ws), got = drive(lambda: asyncio.run(
+            asyncio.wait_for(killed(), 300)))
+        st = serve_stats()
+        for im, pyr in zip(burst, out):
+            check(served_ok(im, pyr),
+                  "a request served after the worker's death differs")
+        check(st["served"] == len(burst) and st["worker_deaths"] == 1
+              and st["workers_spawned"] == 1 and victim in
+              ws["workers"]["dead"],
+              f"worker death: {st}, workers {ws['workers']}")
+        print(f"worker death: {victim} killed mid-burst, {st['served']} of "
+              f"{len(burst)} served as direct calls, {st['redispatched']} "
+              f"re-dispatched, {st['workers_spawned']} replacement; "
+              f"launches {got}")
+        no_fallbacks("phase 3f, worker death")
+
+        # 5. the block table: sweep targets for the "levels" plan, save
+        # the fastest, rebuild through the table
+        lkey = E.canonical_key(E.PlanKey(
+            wavelet=wav, scheme=scheme, levels=L,
+            shape=(max_batch, size, size), dtype="float32", backend="cuda",
+            optimize=False, fuse="levels", boundary="periodic", device=dev))
+        x = torch.randn((max_batch, size, size), generator=gen).to(device)
+        default_plan = E.build_plan(lkey)
+        ref_pyr = default_plan.execute(x)
+        sweep = {}
+        for t in SERVE["block_targets"]:
+            p = E.build_plan(lkey, block_target=t)
+            ts, got = drive(lambda: PF.measure_times(p, x, reps=reps))
+            sweep[t] = (statistics.median(ts), p)
+            print(f"block target {t}: blocks "
+                  f"{[ls.block for ls in p.level_specs]}, "
+                  f"{statistics.median(ts) * 1e3:.4f} ms "
+                  f"(spread {(max(ts) - min(ts)) / statistics.median(ts):.3f})"
+                  f", launches {got}")
+        best_t = min(sweep, key=lambda t: sweep[t][0])
+        AT.save_entry(scheme, (size, size), "levels", "cuda", best_t,
+                      device=dev)
+        tuned = E.build_plan(lkey)
+        want_blocks = [ls.block for ls in sweep[best_t][1].level_specs]
+        check([ls.block for ls in tuned.level_specs] == want_blocks,
+              f"rebuilt plan blocks {[ls.block for ls in tuned.level_specs]}"
+              f", table target {best_t} gives {want_blocks}")
+        out_pyr, got = drive(lambda: tuned.execute(x))
+        same = all(torch.equal(a, b) for a, b in zip(_flat(out_pyr),
+                                                     _flat(ref_pyr)))
+        print(f"block table: best target {best_t} saved; rebuilt plan "
+              f"blocks {want_blocks}; outputs equal the default block's "
+              f"bit for bit: {same}; launches {got}")
+        before = AT.COUNTERS["device_fallbacks"]
+        AT.save_entry(scheme, (size, size), "none", "cuda", (8, 8),
+                      fingerprint="cuda:NVIDIA Elsewhere")
+        check(AT.lookup(scheme, (size, size), "none", "cuda", dev) is None
+              and AT.COUNTERS["device_fallbacks"] == before + 1,
+              "a foreign-fingerprint entry was applied or not counted")
+        print("block table: a foreign-fingerprint entry skipped and counted")
+        no_fallbacks("phase 3f, block table")
+
+        # the h2d copies of a few forward batches, in a profiler trace of
+        # a warmed server at the resolved configuration, taken in a fresh
+        # process (in this one, after the earlier phases, the trace held
+        # the server's d2h copies but not its h2d copies)
+        if cuda:
+            backend, fuse, tap_opt = sorted(configs)[-1]
+            out = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--serve-trace", backend, fuse, tap_opt, str(size),
+                 str(max_batch)], capture_output=True, text=True,
+                timeout=600)
+            check(out.returncode == 0 and out.stdout.strip(),
+                  f"--serve-trace failed: {out.stdout[-2000:]}"
+                  f"{out.stderr[-2000:]}")
+            tr = json.loads(out.stdout.strip().splitlines()[-1])
+            print(f"trace ({tr['trace']}, a fresh process, {backend}/{fuse}):"
+                  f" {tr['batches']} forward batches, device copies "
+                  f"{tr['copies']}, {tr['k2']} K2 kernels; launches "
+                  f"{tr['launches']}")
+            h2d = {n: c for n, c in tr["copies"].items() if "HtoD" in n}
+            check(h2d == {"Memcpy HtoD (Pinned -> Device)": tr["batches"]},
+                  f"h2d copies {h2d} for {tr['batches']} forward batches")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        AT.clear_cache()
+        E.clear_plan_cache()
+    print(f"phase 3f launches (driven paths): {launched}")
+    print(f"phase 3f took {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def _pyramid_bytes(PP, pw, h, w):
     """Modelled and unique bytes of one fused-pyramid launch per image."""
     return PP.pyramid_hbm_bytes((h, w), 4, pw.level_blocks,
@@ -1757,6 +2106,60 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
+def serve_trace_only(torch, backend, fuse, tap_opt, size, max_batch):
+    """``--serve-trace``: phase 3f's profiler trace alone, in a process of
+    its own — a two-worker server warmed by one batch serves two more
+    forward batches of ``size``^2 fp32 images at the given configuration
+    inside ``torch.profiler``; prints one JSON line with the trace's
+    device copies by name, its K2 kernels and the kernels' launches."""
+    import asyncio
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import pyramid_window as PW
+    from repro_torch.kernels import tap_window as TW
+    from repro_torch.serve import (BucketSpec, DwtServer, ServeConfig,
+                                   serve_stats)
+    rng = np.random.default_rng(18)
+    imgs = [rng.standard_normal((size, size)).astype(np.float32)
+            for _ in range(3 * max_batch)]
+    kw = dict(levels=MAIN["levels"], wavelet=MAIN["wavelet"],
+              scheme="ns-polyconv", backend=backend, fuse=fuse,
+              tap_opt=tap_opt)
+    srv = DwtServer(ServeConfig(max_batch=max_batch, num_workers=2))
+    srv.warmup([BucketSpec(shape=(size, size), **kw)])
+
+    async def run():
+        async with srv:
+            await asyncio.gather(*[srv.submit(im, **kw)
+                                   for im in imgs[:max_batch]])
+            torch.cuda.synchronize()
+            counters = kernels(TW, PW)
+            for k in counters.values():
+                k.launches = 0
+            b0 = serve_stats()["batches"]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                await asyncio.gather(*[srv.submit(im, **kw)
+                                       for im in imgs[max_batch:]])
+                torch.cuda.synchronize()
+            return (prof, serve_stats()["batches"] - b0,
+                    {n: k.launches for n, k in counters.items()})
+    prof, batches, launches = asyncio.run(asyncio.wait_for(run(), 300))
+    trace = ROOT / "build" / "chip_smoke" / "serve_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    evs = [e for e in json.loads(trace.read_text()).get("traceEvents", [])
+           if e.get("ph") == "X"]
+    copies = [e["name"] for e in evs if e.get("cat") == "gpu_memcpy"]
+    k2 = sum(1 for e in evs if e.get("cat") == "kernel"
+             and KERNEL_SYMBOLS["pyramid_forward"] in e["name"])
+    print(json.dumps({"trace": str(trace.relative_to(ROOT)),
+                      "batches": batches, "k2": k2, "launches": launches,
+                      "copies": {n: copies.count(n)
+                                 for n in sorted(set(copies))}}))
+    return 0
+
+
 def host_overhead_only(torch, srcs, device, cpu):
     """``--host-overhead SRC [SRC ...]``: phase 3d's host-overhead step
     alone, for the ``repro_torch`` of each ``src`` (say a parent's
@@ -1780,6 +2183,12 @@ def main(argv=None):
                          "host-overhead step) for the repro_torch package of "
                          "each SRC, another checkout's src/ for one (a tree "
                          "without telemetry is timed as it is)")
+    ap.add_argument("--serve-trace", nargs=5, metavar=("BACKEND", "FUSE",
+                                                      "TAP_OPT", "SIZE",
+                                                      "MAX_BATCH"),
+                    help="only phase 3f's profiler trace of a warmed "
+                         "server, in this process (the full run starts it "
+                         "in a fresh one)")
     args = ap.parse_args(argv)
     import torch
     cpu = args.cpu_rehearsal
@@ -1788,6 +2197,10 @@ def main(argv=None):
               "needs a CUDA card (or --cpu-rehearsal)", file=sys.stderr)
         return 2
     device = torch.device("cpu") if cpu else torch.device("cuda", 0)
+    if args.serve_trace:
+        backend, fuse, tap_opt, size, max_batch = args.serve_trace
+        return serve_trace_only(torch, backend, fuse, tap_opt, int(size),
+                                int(max_batch))
     if args.host_overhead:
         return host_overhead_only(
             torch, [Path(src).resolve() for src in args.host_overhead],
@@ -1838,6 +2251,10 @@ def main(argv=None):
                                 timer).items():
         launched[name] += n
     no_fallbacks("phase 3e")
+    for name, n in phase_serving(torch, R, TW, PW, device, cpu,
+                                 gen).items():
+        launched[name] += n
+    no_fallbacks("phase 3f")
     entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
     no_fallbacks("phase 4")
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -9,8 +9,11 @@ by hand-written CUDA kernels (``"cuda"``,
 (``dwt3``/``idwt3``) run on every backend, monolithic or over a grid of
 halo-padded tiles (``tiles=``, ``dwt2_tiled``/``idwt2_tiled``); images
 larger than the card stream band by band from host memory
-(``stream_dwt2``).  Entry points run on the card unless the caller
-passes ``device="cpu"``.
+(``stream_dwt2``).  ``backend="auto"`` picks the backend and fuse mode
+from measurements (:mod:`repro_torch.profiler`), and
+:class:`~repro_torch.serve.DwtServer` batches concurrent requests onto
+cached plans (:mod:`repro_torch.serve`).  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 
     >>> import torch, repro_torch
     >>> pyr = repro_torch.dwt2(torch.ones(16, 16), levels=2, device="cpu")
@@ -26,11 +29,19 @@ from repro_torch.engine import (BackendError, DwtPlan, PlanCache, PlanKey,
                                 Pyramid, Pyramid3, WaveletPacket2D,
                                 available_backends, clear_plan_cache,
                                 get_plan, plan_cache_stats)
+from repro_torch.profiler import (AutoChoice, CostModel, TraceRecord,
+                                  TraceStore, choose, profile_plan,
+                                  warm_batches, warm_store)
+from repro_torch.serve import (BucketSpec, DwtServer, ServeConfig,
+                               serve_map)
 from repro_torch.tiling import dwt2_tiled, idwt2_tiled, stream_dwt2
 
-__all__ = ["BackendError", "DwtPlan", "PacketTree", "PlanCache", "PlanKey",
-           "Pyramid", "Pyramid3", "WaveletPacket2D", "available_backends",
-           "best_basis", "clear_plan_cache", "dwt2", "dwt2_tiled", "dwt3",
+__all__ = ["AutoChoice", "BackendError", "BucketSpec", "CostModel",
+           "DwtPlan", "DwtServer", "PacketTree", "PlanCache", "PlanKey",
+           "Pyramid", "Pyramid3", "ServeConfig", "TraceRecord", "TraceStore",
+           "WaveletPacket2D", "available_backends", "best_basis", "choose",
+           "clear_plan_cache", "dwt2", "dwt2_tiled", "dwt3",
            "flatten_pyramid", "get_plan", "idwt2", "idwt2_tiled", "idwt3",
-           "iwpt2", "plan_cache_stats", "stream_dwt2", "unflatten_pyramid",
-           "validate_finite", "wpt2"]
+           "iwpt2", "plan_cache_stats", "profile_plan", "serve_map",
+           "stream_dwt2", "unflatten_pyramid", "validate_finite",
+           "warm_batches", "warm_store", "wpt2"]

@@ -29,11 +29,15 @@ Parameters shared by :func:`dwt2` and :func:`idwt2`:
     * "conv"  — the compiled tap programs as grouped ``F.conv2d`` calls
       (one per barrier step, or per level when fused; cuDNN at full
       fp32 on the card)
+    * "auto"  — profile-guided: the plan resolves to one of the three
+      above, and a ``fuse`` and ``tap_opt``, from the measured store,
+      the cost model or the cold-start rule for the device
+      (:mod:`repro_torch.profiler`); the ``fuse``/``tap_opt`` arguments
+      are hints the choice overrides
 
     Unknown backends, the reference's names for them ("jnp", "pallas",
-    "xla"), the one not ported yet ("auto") and unsupported (backend,
-    configuration) combinations raise at plan build with the offending
-    field named.
+    "xla") and unsupported (backend, configuration) combinations raise
+    at plan build with the offending field named.
 ``optimize``
     ``True`` applies the paper's Section 5 operation-reduction split
     (identical values, fewer MACs).

@@ -27,6 +27,9 @@ Registered backends:
   stacked polyphase planes (:mod:`repro_torch.compiler.conv`; the
   reference's ``"xla"``): one conv per barrier step under
   ``fuse="none"``, one per level otherwise.
+* ``"auto"``  — the profile-guided meta-backend: ``build_plan``
+  resolves it through :func:`repro_torch.profiler.auto.choose` to one of
+  the three above; plans never execute on it.
 
 PyTorch runs eagerly, so every backend chains levels in Python;
 ``fuse="levels"`` differs from ``"scheme"`` only in name here.  Packet and
@@ -44,8 +47,9 @@ from repro_torch.engine import executor as X
 __all__ = ["Backend", "BackendError", "register_backend", "get_backend",
            "available_backends", "capability_matrix"]
 
-#: backends of the reference package this port does not have yet
-UNPORTED_BACKENDS = ("auto",)
+#: backends of the reference package this port does not have yet (none:
+#: ``"auto"``, the last, came with the profiler)
+UNPORTED_BACKENDS = ()
 #: reference backends whose work a port backend of another name does
 RENAMED_BACKENDS = {"xla": "conv"}
 
@@ -351,6 +355,32 @@ class ConvBackend(Backend):
         return self.level_launches(plan)
 
 
+class AutoBackend(Backend):
+    """Profile-guided meta-backend: ``build_plan`` resolves
+    ``backend="auto"`` through :func:`repro_torch.profiler.auto.choose`
+    (measured store -> fitted cost model -> cold-start rule) and builds
+    the plan on the chosen concrete backend — the returned plan's
+    ``key.backend`` is the concrete one and ``plan.auto`` records the
+    choice.  The ``fuse``/``tap_opt`` arguments of an auto call are hints
+    only: the choice overrides them, so ``validate`` accepts every
+    generic key and the chosen backend re-validates after substitution."""
+
+    name = "auto"
+    description = ("profile-guided: the measured cost model picks "
+                   "(backend, fuse, block, tap_opt) per device")
+
+    def validate(self, key) -> None:
+        return None
+
+    def make_forward(self, plan):
+        raise BackendError(
+            "backend 'auto' resolves to a concrete backend at plan "
+            "build; plans never execute on it directly")
+
+    make_inverse = make_forward
+
+
 register_backend(TorchBackend())
 register_backend(CudaBackend())
 register_backend(ConvBackend())
+register_backend(AutoBackend())

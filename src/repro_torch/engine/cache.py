@@ -153,23 +153,6 @@ def clear_plan_cache() -> None:
     _GLOBAL.clear()
 
 
-# zeroed section schemas of the subsystems not ported yet: the auto,
-# serve and block_table sections stay at zero until the profiler and
-# serving slices are ported, as the reference's do when a subsystem fails
-# to load
-_SERVE_ZERO = {
-    "submitted": 0, "served": 0, "failed": 0, "rejected": 0,
-    "redispatched": 0, "worker_deaths": 0, "workers_spawned": 0,
-    "deadline_exceeded": 0, "quarantined": 0, "breaker_rejections": 0,
-    "batches": 0, "padded_images": 0, "mean_occupancy": None,
-    "latency_samples": 0, "latency_dropped": 0,
-    "p50_ms": None, "p99_ms": None, "img_per_s": None,
-}
-_AUTO_ZERO = {"predictions": 0, "store_hits": 0, "cold_fallbacks": 0,
-              "choices": {}}
-_BLOCK_TABLE_ZERO = {"device_fallbacks": 0, "path": ""}
-
-
 def _plan_row(key: PlanKey, plan: DwtPlan) -> dict:
     row = {"wavelet": key.wavelet, "scheme": key.scheme,
            "levels": key.levels, "shape": key.shape,
@@ -202,6 +185,13 @@ def _plan_row(key: PlanKey, plan: DwtPlan) -> dict:
         row["ndim"] = key.ndim
     if plan.fallback is not None:
         row["fallback"] = plan.fallback
+    if plan.auto is not None:
+        # the cache key says backend="auto"; the plan key carries the
+        # concrete resolution
+        row["auto"] = {"backend": plan.key.backend, "fuse": plan.key.fuse,
+                       "tap_opt": plan.key.tap_opt,
+                       "source": plan.auto.source,
+                       "predicted_s": plan.auto.predicted_s}
     return row
 
 
@@ -210,28 +200,39 @@ def stats() -> dict:
     plan-cache hit/miss counters, the fault plane and its policies
     (:mod:`repro_torch.faults`), fused-pyramid counters (executions,
     shared-memory fallbacks — ``vmem_fallbacks``, the reference's key and
-    metric), the registered-backend capability matrix, the telemetry
-    registry/span-ring accounting (:mod:`repro_torch.telemetry`), the
-    zeroed ``auto`` / ``block_table`` / ``serve`` sections of subsystems
-    not ported yet, plus one row per cached plan (steps, kernel
-    launches, compiled tap-program op counts, tile grid, pyramid
-    geometry).  A tiled plan's ``launches`` are its window plan's, which
-    the row reads through the plan cache.  In a
-    plan row, the reference's ``pallas_calls`` is ``launches`` and
-    ``pyramid_vmem_bytes`` is ``pyramid_smem_bytes``.
+    metric), ``backend="auto"`` resolutions by source and the chosen
+    configurations (:mod:`repro_torch.profiler`), block-table
+    device-mismatch fallbacks and the table's path
+    (:mod:`repro_torch.engine.autotune`), the registered-backend
+    capability matrix, serving counters — p50/p99 request latency,
+    served img/s, batch occupancy, backpressure and re-dispatch counts
+    (:mod:`repro_torch.serve`) — the telemetry registry/span-ring
+    accounting (:mod:`repro_torch.telemetry`), plus one row per cached
+    plan (steps, kernel launches, compiled tap-program op counts, tile
+    grid, pyramid geometry, the ``auto`` resolution).  A tiled plan's
+    ``launches`` are its window plan's, which the row reads through the
+    plan cache.  In a plan row, the reference's ``pallas_calls`` is
+    ``launches`` and ``pyramid_vmem_bytes`` is ``pyramid_smem_bytes``.
+    Every section is read live; a section whose read fails raises (a
+    zeroed section would hide what it counts).
 
     >>> from repro_torch import engine
     >>> s = engine.stats()
     >>> sorted(s)
     ['auto', 'backends', 'block_table', 'faults', 'plan_cache', 'plans', 'pyramid', 'serve', 'telemetry']
     >>> [row["backend"] for row in s["backends"]]
-    ['conv', 'cuda', 'torch']
+    ['auto', 'conv', 'cuda', 'torch']
+    >>> sorted(s["auto"])
+    ['choices', 'cold_fallbacks', 'predictions', 'store_hits']
     >>> sorted(s["pyramid"])
     ['pyramid_kernel_launches', 'vmem_fallbacks']
     """
     from repro_torch import faults as F
+    from repro_torch.engine import autotune as AT
     from repro_torch.engine import backends as B
     from repro_torch.engine import plan as P
+    from repro_torch.profiler import auto as PA  # profiler -> engine
+    from repro_torch.serve import metrics as SM
     with _GLOBAL._lock:
         items = list(_GLOBAL._plans.items())
     return {"plan_cache": _GLOBAL.stats(),
@@ -239,9 +240,11 @@ def stats() -> dict:
             "pyramid": {"pyramid_kernel_launches":
                         P.COUNTERS["pyramid_kernel_launches"],
                         "vmem_fallbacks": P.COUNTERS["smem_fallbacks"]},
-            "auto": dict(_AUTO_ZERO, choices={}),
-            "block_table": dict(_BLOCK_TABLE_ZERO),
+            "auto": PA.auto_stats(),
+            "block_table": {"device_fallbacks":
+                            AT.COUNTERS["device_fallbacks"],
+                            "path": str(AT.table_path())},
             "backends": list(B.capability_matrix()),
-            "serve": dict(_SERVE_ZERO),
+            "serve": SM.serve_stats(),
             "telemetry": T.stats(),
             "plans": [_plan_row(key, plan) for key, plan in items]}

@@ -38,6 +38,13 @@ Wavelet-packet plans (``PlanKey.packet``, the canonical leaf tuple of a
 demote ``fuse="pyramid"`` to ``"levels"`` (counted in
 :data:`WORKLOAD_COUNTERS`), as the reference does.
 
+``backend="auto"`` keys resolve at build to a concrete backend, fuse and
+tap_opt (:func:`repro_torch.profiler.auto.choose`); the plan records the
+choice in ``plan.auto``.  The window kernel's block starts from the
+block table's target for the key's device
+(:mod:`repro_torch.engine.autotune`), else
+:data:`~repro_torch.kernels.tap_window.BLOCK_TARGET`.
+
 Tiled plans (``PlanKey.tiles``, 2-D pyramids only) carry a
 :class:`~repro_torch.tiling.grid.TileGrid` (``plan.grid``) whose exact
 halo margins come from the plan's compiled programs; their executors
@@ -285,6 +292,9 @@ class DwtPlan:
     # TileGrid when key.tiles is set (executors then come from
     # repro_torch.tiling)
     grid: Optional[object] = None
+    # AutoChoice when this plan was resolved from backend="auto" (the
+    # cache key says "auto"; ``key`` carries the concrete resolution)
+    auto: Optional[object] = None
 
     @property
     def num_steps(self) -> int:
@@ -298,27 +308,15 @@ class DwtPlan:
 
     @property
     def level_runs(self) -> Tuple[int, ...]:
-        """How many times each level's 2-D transform runs per execution:
-        once per internal packet node at that depth, twice (both temporal
-        half-bands) for a 3-D plan, else once."""
-        if self.key.packet is not None:
-            from repro_torch.core import packets as PK
-            depths = [len(p) for p in
-                      PK.PacketTree(self.key.packet).internal_nodes()]
-            return tuple(depths.count(d) for d in range(self.key.levels))
-        return (2 if self.key.ndim == 3 else 1,) * self.key.levels
+        """How many times each level's 2-D transform runs per execution
+        (:func:`level_runs`)."""
+        return level_runs(self.key)
 
     @property
     def level_images(self) -> Tuple[int, ...]:
-        """Images in one run of each level's 2-D transform: the batch of a
-        2-D or packet plan, the frames of one temporal half-band of a 3-D
-        plan."""
-        k = self.key
-        if k.ndim == 3:
-            lead = math.prod(k.shape[:-3])
-            return tuple(lead * (k.shape[-3] >> (l + 1))
-                         for l in range(k.levels))
-        return (math.prod(k.shape[:-2]),) * k.levels
+        """Images in one run of each level's 2-D transform
+        (:func:`level_images`)."""
+        return level_images(self.key)
 
     @property
     def tile_count(self) -> Optional[int]:
@@ -340,6 +338,32 @@ class DwtPlan:
         if str(t.device) != self.key.device:
             raise ValueError(f"plan built for device {self.key.device}, "
                              f"got {what} on {t.device}")
+
+    def prepare(self) -> "DwtPlan":
+        """Build the CUDA kernels this plan launches and upload its
+        device tables, without launching anything (a no-op on the CPU
+        and on backends without kernels of their own): a caller that
+        times the plan, or serves it from several threads, does this
+        before the first execution, so no build or upload lands in a
+        measurement or on a worker's stream."""
+        dev = torch.device(self.key.device)
+        if dev.type != "cuda" or not self.backend.window_kernel:
+            return self
+        if self.grid is not None:
+            from repro_torch.tiling import api as TA
+            for op in ("forward", "inverse"):
+                TA.window_plan(self, op).prepare()
+            return self
+        if self.pyramid is not None:
+            PW.LIBRARY.library()
+            for pw in (self.pyramid.fwd_kernel, self.pyramid.inv_kernel):
+                pw.device_table(dev)
+            return self
+        TW.LIBRARY.library()
+        for spec in self.level_specs:
+            for win in spec.fwd_windows + spec.inv_windows:
+                win.device_table(dev)
+        return self
 
     def compiled_stats(self) -> Optional[dict]:
         """Aggregate tap-program cost of the finest forward level (the hot
@@ -406,10 +430,45 @@ class DwtPlan:
             "inverse", (pyr.ll, tuple(tuple(d) for d in pyr.details)))
 
 
+def level_runs(key: PlanKey) -> Tuple[int, ...]:
+    """How many times each level's 2-D transform runs per execution of a
+    plan of ``key``: once per internal packet node at that depth, twice
+    (both temporal half-bands) for a 3-D plan, else once."""
+    if key.packet is not None:
+        from repro_torch.core import packets as PK
+        depths = [len(p) for p in PK.PacketTree(key.packet).internal_nodes()]
+        return tuple(depths.count(d) for d in range(key.levels))
+    return (2 if key.ndim == 3 else 1,) * key.levels
+
+
+def level_images(key: PlanKey) -> Tuple[int, ...]:
+    """Images in one run of each level's 2-D transform: the batch of a
+    2-D or packet plan, the frames of one temporal half-band of a 3-D
+    plan."""
+    if key.ndim == 3:
+        lead = math.prod(key.shape[:-3])
+        return tuple(lead * (key.shape[-3] >> (l + 1))
+                     for l in range(key.levels))
+    return (math.prod(key.shape[:-2]),) * key.levels
+
+
+def pick_block_target(key: PlanKey) -> Tuple[int, int]:
+    """Block target of a plan built without an explicit one: the block
+    table's entry for ``(scheme, HxW, fuse, backend)`` on the key's
+    device (:mod:`repro_torch.engine.autotune`), else
+    :data:`~repro_torch.kernels.tap_window.BLOCK_TARGET`."""
+    from repro_torch.engine import autotune as AT
+    tuned = AT.lookup(key.scheme, key.shape[-2:], key.fuse, key.backend,
+                      key.device)
+    return tuned if tuned is not None else TW.BLOCK_TARGET
+
+
 def _resolve_level(index: int, h: int, w: int, key: PlanKey,
                    fwd: Tuple[PP.StepSpec, ...],
                    inv: Tuple[PP.StepSpec, ...],
-                   backend: "B.Backend") -> LevelSpec:
+                   backend: "B.Backend",
+                   block_target: Tuple[int, int] = TW.BLOCK_TARGET
+                   ) -> LevelSpec:
     hp, wp = h // 2, w // 2
     fwd_programs = inv_programs = fwd_windows = inv_windows = block = None
     # the backend decides the tap-program compilation level (None = raw
@@ -423,9 +482,10 @@ def _resolve_level(index: int, h: int, w: int, key: PlanKey,
         inv_programs = C.compile_scheme_programs(
             key.wavelet, key.scheme, False, True, opt, pfuse)
     if backend.window_kernel:
-        # SMEM guard: one block for the level, shrunk until every launch
-        # of both directions fits in shared memory
-        block = TW.fit_block(fwd_programs + inv_programs, hp, wp)
+        # SMEM guard: one block for the level, shrunk from the target
+        # until every launch of both directions fits in shared memory
+        block = TW.fit_block(fwd_programs + inv_programs, hp, wp,
+                             block_target)
         fwd_windows = tuple(TW.encode(p, block, key.compute_dtype)
                             for p in fwd_programs)
         inv_windows = tuple(TW.encode(p, block, key.compute_dtype)
@@ -463,27 +523,22 @@ def pyramid_programs(key: PlanKey):
     return fwd_sched, inv_sched, fwd_kprogs, inv_kprogs
 
 
-def _resolve_pyramid(key: PlanKey, h: int, w: int,
-                     block_target: Tuple[int, int] = TW.BLOCK_TARGET
-                     ) -> Tuple[Optional[PyramidSpec], Optional[str]]:
-    """Resolve the fused-pyramid kernels of a plan.
+def pyramid_blocks(key: PlanKey, h: int, w: int,
+                   block_target: Tuple[int, int] = TW.BLOCK_TARGET):
+    """The fused-pyramid kernels' programs and per-level plane tiles of a
+    plan key, without encoding a table: ``(fwd schedule, inv schedule,
+    fwd programs, inv programs, blocks, why)``, where ``why`` is None or,
+    when a level of either kernel does not fit the shared-memory budget
+    (:func:`pyramid_smem_limit`), ``(direction, reason)``.
 
     Both kernels run each level at the window kernel's block for that
     level (:func:`~repro_torch.kernels.tap_window.fit_block` of the
-    level's two programs, as ``fuse="levels"`` picks it) with its own
-    halo: a kernel's shared memory is its largest per-level footprint.
-    Both must fit :func:`pyramid_smem_limit`; where a level of either does
-    not, the plan falls back to ``fuse="levels"`` execution (counted in
-    :data:`COUNTERS`) and says which direction did not fit."""
+    level's two programs from ``block_target``, as ``fuse="levels"``
+    picks it) with its own halo: a kernel's shared memory is its largest
+    per-level footprint at level 0's positions per thread."""
     fwd_sched, inv_sched, fwd_kprogs, inv_kprogs = pyramid_programs(key)
     limit = pyramid_smem_limit()
-
-    def fallback(direction: str, why: str):
-        VMEM_FALLBACKS.inc()
-        return None, (f"{direction} pyramid: {why}; executing as "
-                      f"fuse='levels'")
-
-    blocks = []
+    blocks, why = [], None
     for l, (fp, ip) in enumerate(zip(fwd_kprogs, inv_kprogs)):
         hp, wp = h >> (l + 1), w >> (l + 1)
         try:
@@ -493,16 +548,39 @@ def _resolve_pyramid(key: PlanKey, h: int, w: int,
             try:
                 TW.fit_block((fp,), hp, wp, block_target, limit)
             except TW.SmemError:
-                return fallback("forward", f"level {l}'s {e}")
-            return fallback("inverse", f"level {l}'s {e}")
+                why = ("forward", f"level {l}'s {e}")
+            else:
+                why = ("inverse", f"level {l}'s {e}")
+            break
+    if why is None:
+        for direction, progs in (("forward", fwd_kprogs),
+                                 ("inverse", inv_kprogs)):
+            # fit_block prices each program at its own positions per
+            # thread; a kernel walks every level at level 0's (another
+            # back pad)
+            need = PW.smem_bytes(progs, blocks)
+            if need > limit:
+                why = (direction, f"needs {need} B of shared memory > "
+                                  f"limit {limit} B")
+                break
+    return fwd_sched, inv_sched, fwd_kprogs, inv_kprogs, blocks, why
+
+
+def _resolve_pyramid(key: PlanKey, h: int, w: int,
+                     block_target: Tuple[int, int] = TW.BLOCK_TARGET
+                     ) -> Tuple[Optional[PyramidSpec], Optional[str]]:
+    """Resolve the fused-pyramid kernels of a plan at the tiles of
+    :func:`pyramid_blocks`.  Where a level of either kernel does not fit,
+    the plan falls back to ``fuse="levels"`` execution (counted in
+    :data:`COUNTERS`) and says which direction did not fit."""
+    fwd_sched, inv_sched, fwd_kprogs, inv_kprogs, blocks, why = \
+        pyramid_blocks(key, h, w, block_target)
+    if why is not None:
+        VMEM_FALLBACKS.inc()
+        return None, (f"{why[0]} pyramid: {why[1]}; executing as "
+                      f"fuse='levels'")
     fwd = PW.encode_forward(fwd_kprogs, fwd_sched, blocks, key.compute_dtype)
     inv = PW.encode_inverse(inv_kprogs, inv_sched, blocks, key.compute_dtype)
-    for direction, k in (("forward", fwd), ("inverse", inv)):
-        # fit_block prices each program at its own positions per thread;
-        # a kernel walks every level at level 0's (another back pad)
-        if k.smem_bytes > limit:
-            return fallback(direction, f"needs {k.smem_bytes} B of shared "
-                                       f"memory > limit {limit} B")
     bh, bw = fwd.block
     return PyramidSpec(
         block=(bh, bw), covered_shape=(-(-h // bh) * bh, -(-w // bw) * bw),
@@ -510,18 +588,29 @@ def _resolve_pyramid(key: PlanKey, h: int, w: int,
         inv_kernel=inv), None
 
 
-def build_plan(key: PlanKey) -> DwtPlan:
+def build_plan(key: PlanKey,
+               block_target: Optional[Tuple[int, int]] = None) -> DwtPlan:
     """Resolve a :class:`PlanKey` into an executable :class:`DwtPlan`.
 
-    The window kernel's block starts from
-    :data:`~repro_torch.kernels.tap_window.BLOCK_TARGET` and shrinks
-    through the SMEM guard (:func:`~repro_torch.kernels.tap_window.fit_block`).
+    The window kernel's block starts from ``block_target``; ``None``
+    takes the block table's entry for the key's device
+    (:func:`pick_block_target`), else
+    :data:`~repro_torch.kernels.tap_window.BLOCK_TARGET`.  Either way it
+    shrinks through the SMEM guard
+    (:func:`~repro_torch.kernels.tap_window.fit_block`).
 
-    Unknown backends, unsupported ``(backend, PlanKey)`` combinations and
-    reference features not ported yet raise
-    :class:`~repro_torch.engine.backends.BackendError` here, at plan
-    build, with the offending PlanKey field named.  Packet and 3-D keys
-    are checked in the reference's order with its texts, and demote
+    ``backend="auto"`` delegates to the profiler
+    (:func:`repro_torch.profiler.auto.choose`): the measured store, the
+    cost model or the cold-start rule picks the concrete ``(backend,
+    fuse, block_target, tap_opt)`` for the key's device, and the returned
+    plan — bit-identical in output to a direct build of that
+    configuration — carries the concrete key plus the
+    :class:`~repro_torch.profiler.auto.AutoChoice` on ``plan.auto``.
+
+    Unknown backends and unsupported ``(backend, PlanKey)`` combinations
+    raise :class:`~repro_torch.engine.backends.BackendError` here, at
+    plan build, with the offending PlanKey field named.  Packet and 3-D
+    keys are checked in the reference's order with its texts, and demote
     ``fuse="pyramid"`` to ``"levels"`` (stated in ``plan.fallback``).
     The build runs inside a ``plan.build`` span and is the
     ``plan.build`` fault-injection site.
@@ -530,10 +619,11 @@ def build_plan(key: PlanKey) -> DwtPlan:
     with T.span("plan.build", backend=key.backend, fuse=key.fuse,
                 scheme=key.scheme, levels=key.levels):
         FI.maybe_inject("plan.build", backend=key.backend, fuse=key.fuse)
-        return _build_plan(key)
+        return _build_plan(key, block_target)
 
 
-def _build_plan(key: PlanKey) -> DwtPlan:
+def _build_plan(key: PlanKey,
+                block_target: Optional[Tuple[int, int]] = None) -> DwtPlan:
     PLAN_BUILDS.inc(backend=key.backend, fuse=key.fuse, scheme=key.scheme)
     backend = B.get_backend(key.backend)
     if key.fuse not in FUSE_MODES:
@@ -594,10 +684,27 @@ def _build_plan(key: PlanKey) -> DwtPlan:
                 f"{t}x{h}x{w}: T={t} is not divisible by "
                 f"2^levels={div}")
 
+    if key.backend == "auto":
+        # profile-guided resolution; the returned plan executes on the
+        # chosen backend and records the choice for engine.stats()
+        from repro_torch.profiler import auto as PA  # profiler -> engine
+        choice = PA.choose(key, block_target=block_target)
+        concrete = dataclasses.replace(key, backend=choice.backend,
+                                       fuse=choice.fuse,
+                                       tap_opt=choice.tap_opt)
+        plan = build_plan(concrete,
+                          block_target=(block_target if block_target
+                                        is not None else choice.block))
+        plan.auto = choice
+        return plan
+    if block_target is None and backend.window_kernel:
+        block_target = pick_block_target(key)
+    block_target = block_target or TW.BLOCK_TARGET
+
     fwd = scheme_steps(key.wavelet, key.scheme, key.optimize, False)
     inv = scheme_steps(key.wavelet, key.scheme, False, True)
     specs = tuple(_resolve_level(lvl, h >> lvl, w >> lvl, key, fwd, inv,
-                                 backend)
+                                 backend, block_target)
                   for lvl in range(key.levels))
     plan = DwtPlan(key=key, level_specs=specs, fallback=demoted)
     if key.packet is not None:
@@ -615,7 +722,8 @@ def _build_plan(key: PlanKey) -> DwtPlan:
         return plan
     if key.fuse == "pyramid" and backend.pyramid_kernel \
             and key.tiles is None:
-        plan.pyramid, plan.fallback = _resolve_pyramid(key, h, w)
+        plan.pyramid, plan.fallback = _resolve_pyramid(key, h, w,
+                                                       block_target)
 
     if key.tiles is not None:
         # deferred: tiling sits above the engine and imports it back

@@ -53,8 +53,8 @@ FAULTS_ENV = "REPRO_TORCH_FAULTS"
 KINDS = ("raise", "hang", "slow", "corrupt")
 
 #: every registered injection site, mirroring the span taxonomy — the
-#: reference's twelve; the engine wires the first four, the tiling,
-#: streaming, serving and profiler slices the rest
+#: reference's twelve, each wired where the reference has it (engine,
+#: tiling, streaming, serving, profiler store)
 SITES = (
     "plan.build",            # engine: DwtPlan resolution
     "execute.forward",       # engine: forward executor dispatch

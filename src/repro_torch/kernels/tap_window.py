@@ -551,7 +551,8 @@ class Kernel:
     """One kernel of a :class:`KernelLibrary` and its launch counter.
 
     ``launches`` counts kernel launches and nothing else: the plain
-    version (CPU tensors) never touches it.
+    version (CPU tensors) never touches it.  It counts exactly when
+    several threads launch (a server's workers).
     """
 
     def __init__(self, name: str, library: KernelLibrary):
@@ -560,6 +561,7 @@ class Kernel:
         self.launches = 0
         #: (grid, resident blocks per SM) of the last launch
         self.last_grid: Tuple[int, int] = (0, 0)
+        self._lock = threading.Lock()
 
     def library(self):
         return self.lib.library()
@@ -567,8 +569,9 @@ class Kernel:
     def launched(self, info) -> None:
         """Count one launch; ``info`` is the (grid, blocks per SM) pair
         the launch function wrote."""
-        self.launches += 1
-        self.last_grid = (int(info[0]), int(info[1]))
+        with self._lock:
+            self.launches += 1
+            self.last_grid = (int(info[0]), int(info[1]))
 
 
 def _bind(lib) -> None:

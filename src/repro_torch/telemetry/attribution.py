@@ -11,10 +11,12 @@ as gauges:
 * ``repro_achieved_macs_per_s`` — compiled MACs / measured seconds,
 * ``repro_measured_seconds``    — the raw measurement,
 
+* ``repro_model_time_ratio``   — measured / cost-model-predicted
+  seconds, for plans resolved from ``backend="auto"``
+  (:mod:`repro_torch.profiler.auto`),
+
 all labelled ``(scheme, backend, fuse, levels, op)`` — a live roofline
-per plan.  The metric names are the reference package's (its
-``repro_model_time_ratio`` gauge comes with the profiler's cost model,
-not ported yet).
+per plan.  The metric names are the reference package's.
 
 The caller is the engine's ``execute.*`` span under
 ``REPRO_TORCH_TELEMETRY=spans`` (:func:`record_span`): on a CUDA plan
@@ -45,6 +47,9 @@ _ACHIEVED_MACS = REGISTRY.gauge(
 _MEASURED_S = REGISTRY.gauge(
     "repro_measured_seconds",
     "last measured wall-clock seconds per execution, per plan")
+_MODEL_RATIO = REGISTRY.gauge(
+    "repro_model_time_ratio",
+    "measured / cost-model-predicted seconds (auto-resolved plans)")
 
 
 def plan_macs(plan, op: str = "forward") -> Optional[int]:
@@ -127,6 +132,10 @@ def _publish(plan, seconds: float, op: str) -> Optional[dict]:
     _ACHIEVED_GBPS.set(row["gbps"], **labels)
     if row["macs_per_s"] is not None:
         _ACHIEVED_MACS.set(row["macs_per_s"], **labels)
+    predicted = getattr(getattr(plan, "auto", None), "predicted_s", None)
+    if predicted:
+        row["model_time_ratio"] = seconds / predicted
+        _MODEL_RATIO.set(row["model_time_ratio"], **labels)
     return row
 
 
@@ -174,7 +183,8 @@ def roofline() -> list:
     out = {}
     for metric, field in ((_MEASURED_S, "seconds"),
                           (_ACHIEVED_GBPS, "gbps"),
-                          (_ACHIEVED_MACS, "macs_per_s")):
+                          (_ACHIEVED_MACS, "macs_per_s"),
+                          (_MODEL_RATIO, "model_time_ratio")):
         for s in metric.series():
             key = tuple(sorted(s["labels"].items()))
             out.setdefault(key, dict(s["labels"]))[field] = s["value"]

@@ -1,7 +1,9 @@
 """The CUDA kernels on the card (the window kernel K1 and the
 fused-pyramid kernels K2/K3), against their plain versions; the packet
-and 3-D paths through K1 against the same calls on the CPU; and the
-conv backend on the card at full fp32.
+and 3-D paths through K1 against the same calls on the CPU; the conv
+backend on the card at full fp32; and ``backend="auto"`` and the server
+on the card (cold rule, warmed store, served results bit for bit, two
+workers on their own streams, pinned host buffers).
 
 Marked ``cuda``: where no CUDA device is present every test skips with
 that reason.  On a machine with the card (no JAX needed):
@@ -530,3 +532,145 @@ def test_stream_equals_monolithic(cuda_device):
                       device=cuda_device)
         for p, q in zip(_all_planes(mono), _all_planes(pyr)):
             assert np.array_equal(p.cpu().numpy(), q)
+
+
+# -- the profiler, backend="auto" and serving on the card ---------------
+
+@pytest.fixture
+def auto_files(tmp_path, monkeypatch, port_planes):
+    """The profiler store and block table in ``tmp_path`` and an empty
+    plan cache around a test."""
+    from repro_torch import engine as E
+    from repro_torch.engine import autotune as AT
+    from repro_torch.serve import metrics as SM
+    monkeypatch.setenv("REPRO_TORCH_PROFILE_STORE",
+                       str(tmp_path / "store.jsonl"))
+    monkeypatch.setenv("REPRO_TORCH_BLOCK_TABLE",
+                       str(tmp_path / "table.json"))
+    AT.clear_cache()
+    E.clear_plan_cache()
+    SM.reset()
+    yield tmp_path
+    E.clear_plan_cache()
+    AT.clear_cache()
+
+
+def _images_np(n, h, w, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((h, w)).astype(np.float32) for _ in range(n)]
+
+
+def test_auto_cold_resolves_to_cuda_pyramid(cuda_device, auto_files):
+    from repro_torch import engine as E
+    from repro_torch.kernels import pyramid_window as PW
+    plan = E.get_plan(shape=(2, 256, 256), levels=3, backend="auto",
+                      device=cuda_device)
+    assert plan.auto.source == "heuristic"
+    assert (plan.key.backend, plan.key.fuse) == ("cuda", "pyramid")
+    assert plan.pyramid is not None
+    x = torch.randn(2, 256, 256, device=cuda_device)
+    n = PW.FORWARD.launches
+    pyr = R.dwt2(x, levels=3, backend="auto", device=cuda_device)
+    assert PW.FORWARD.launches == n + 1
+    want = R.dwt2(x, levels=3, backend="cuda", fuse="pyramid",
+                  device=cuda_device)
+    assert torch.equal(pyr.ll, want.ll)
+    one = E.get_plan(shape=(2, 256, 256), levels=1, backend="auto",
+                     device=cuda_device)
+    assert (one.key.backend, one.key.fuse) == ("cuda", "levels")
+
+
+def test_auto_resolves_from_a_warmed_store_on_the_card(cuda_device,
+                                                       auto_files):
+    from repro_torch import engine as E
+    from repro_torch import profiler as PF
+    from repro_torch.kernels import tap_window as TW
+    recs = PF.warm_store(shape=(2, 256, 256), levels=2, reps=3,
+                         device=cuda_device)
+    fp = "cuda:" + torch.cuda.get_device_name(0)
+    assert all(r.fingerprint == fp and not r.meta["plain_kernels"]
+               for r in recs)
+    assert {(r.backend, r.fuse) for r in recs} >= {
+        ("cuda", f) for f in ("none", "scheme", "levels", "pyramid")}
+    best = min(recs, key=lambda r: (r.time_s, r.backend, r.fuse))
+    plan = E.get_plan(shape=(2, 256, 256), levels=2, backend="auto",
+                      device=cuda_device)
+    assert plan.auto.source == "store"
+    assert (plan.key.backend, plan.key.fuse) == (best.backend, best.fuse)
+    # the card's records never steer a CPU key
+    cpu = E.get_plan(shape=(2, 256, 256), levels=2, backend="auto",
+                     device="cpu")
+    assert cpu.auto.source == "heuristic"
+    assert TW.KERNEL.launches > 0
+
+
+def _serve(cfg, imgs, **kw):
+    import asyncio
+    from repro_torch.serve import DwtServer
+
+    async def run():
+        async with DwtServer(cfg) as srv:
+            out = await asyncio.gather(*[srv.submit(im, **kw)
+                                         for im in imgs])
+            return out, srv
+    return asyncio.run(asyncio.wait_for(run(), 120))
+
+
+@pytest.mark.parametrize("backend,fuse", [("cuda", "pyramid"),
+                                          ("cuda", "levels"),
+                                          ("cuda", "none")])
+def test_served_results_equal_direct_calls_on_the_card(cuda_device,
+                                                       auto_files, backend,
+                                                       fuse):
+    import numpy as np
+    from repro_torch.serve import ServeConfig
+    imgs = _images_np(11, 256, 256)
+    kw = dict(levels=3, backend=backend, fuse=fuse)
+    served, _ = _serve(ServeConfig(max_batch=4, num_workers=2,
+                                   max_wait_ms=2.0), imgs, **kw)
+    for s, im in zip(served, imgs):
+        want = R.dwt2(torch.from_numpy(im), device=cuda_device, **kw)
+        for a, b in zip(_all_planes(want), [s.ll] +
+                        [d for dd in s.details for d in dd]):
+            assert np.array_equal(a.cpu().numpy(), b)
+
+
+def test_two_workers_run_on_their_own_streams_and_count_exactly(
+        cuda_device, auto_files):
+    from repro_torch.kernels import pyramid_window as PW
+    from repro_torch.serve import ServeConfig, serve_stats
+    imgs = _images_np(32, 128, 128, seed=3)
+    n = PW.FORWARD.launches
+    served, srv = _serve(ServeConfig(max_batch=2, num_workers=2,
+                                     max_wait_ms=0.5), imgs, levels=2,
+                         fuse="pyramid")
+    st = serve_stats()
+    assert st["served"] == 32
+    assert PW.FORWARD.launches - n == st["batches"]
+    assert srv._streams == {}               # released at stop
+    assert len(served) == 32
+
+
+def test_served_outputs_and_staging_are_pinned(cuda_device, auto_files):
+    import asyncio
+    from repro_torch.serve import DwtServer, ServeConfig
+    imgs = _images_np(3, 128, 128, seed=4)
+
+    async def run():
+        srv = DwtServer(ServeConfig(max_batch=4, num_workers=1,
+                                    max_wait_ms=2.0))
+        async with srv:
+            out = await asyncio.gather(*[srv.submit(im, levels=2)
+                                         for im in imgs])
+            stages = [t for d in srv._stages.values() for t, _ in
+                      d.values()]
+            streams = list(srv._streams.values())
+            return out, stages, streams
+    out, stages, streams = asyncio.run(asyncio.wait_for(run(), 120))
+    assert stages and all(t.is_pinned() for t in stages)
+    assert len(streams) == 1 and streams[0] != torch.cuda.default_stream()
+    # every request's planes are views of its batch's pinned buffer
+    for pyr in out:
+        for a in [pyr.ll] + [d for dd in pyr.details for d in dd]:
+            assert torch.from_numpy(a).is_pinned()

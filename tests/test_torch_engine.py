@@ -288,7 +288,9 @@ def test_plan_rejects_input_on_another_device():
     (dict(tiles=(8, 8), backend="cuda", dtype="float64"), "PlanKey.dtype"),
     # the reference's XLA conv path is backend "conv" here
     (dict(backend="xla"), "'conv'"),
-    (dict(backend="auto"), "PlanKey.backend"),
+    # the reference's name of the "cuda" backend ("auto" is ported: it
+    # builds, tests/test_torch_profiler.py)
+    (dict(backend="pallas"), "PlanKey.backend"),
     (dict(backend="nope"), "PlanKey.backend"),
     (dict(backend="cuda", dtype="float64"), "PlanKey.dtype"),
 ])

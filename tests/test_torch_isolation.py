@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package, and importing the port builds
+neither JAX nor the reference package, and importing the port — or
+driving its CPU paths, the profiler and a CPU server included — builds
 nothing (each CUDA source is compiled at its kernels' first launch)."""
 import os
 import re
@@ -34,6 +35,20 @@ for fuse in ("none", "pyramid"):
                                        tiles=(16, 16), fuse=fuse,
                                        device="cpu")
     assert streamed.ll.shape == (8, 8)
+# the profiler and serving slice: a CPU serve_map resolving "auto", a
+# warmed store, and the inverse path
+import numpy as np
+from repro_torch import profiler, serve
+imgs = [np.full((16, 16), float(i), np.float32) for i in range(3)]
+pyrs = serve.serve_map(imgs, config=serve.ServeConfig(device="cpu",
+                                                      max_batch=2),
+                       levels=2, backend="auto")
+assert [p.ll.shape for p in pyrs] == [(4, 4)] * 3
+recs = profiler.warm_store(shape=(1, 16, 16), levels=1, reps=1,
+                           device="cpu")
+key = repro_torch.PlanKey("cdf97", "ns-polyconv", 1, (1, 16, 16), "float32",
+                          "auto", False, "none", "periodic", device="cpu")
+assert recs and profiler.choose(key).source == "store"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -50,8 +65,10 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-def test_subprocess_import_pulls_in_no_jax_and_no_reference():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+def test_subprocess_import_pulls_in_no_jax_and_no_reference(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_PROFILE_STORE=str(tmp_path / "store.jsonl"),
+               REPRO_TORCH_BLOCK_TABLE=str(tmp_path / "table.json"))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

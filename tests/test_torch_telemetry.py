@@ -587,15 +587,20 @@ def test_engine_stats_schema_exact_top_level_keys():
 
 
 def test_engine_stats_sections_degrade_to_zero_schema(monkeypatch):
-    """The subsystems not ported yet (auto, serve, block_table) hold the
-    zeroed schema the reference reports when a subsystem fails to load;
-    a live section whose read fails raises instead of reading zero (a
-    zeroed fault section would hide a fallback)."""
-    from repro_torch.engine import cache as EC
+    """At reset, the live auto, serve and block_table sections equal the
+    zeroed schemas the reference reports when a subsystem fails to load
+    (the block table with its path); a section whose read fails raises
+    instead of reading zero (a zeroed fault section would hide a
+    fallback)."""
+    from repro.engine import cache as JEC
+    from repro_torch.engine import autotune as AT
+    from repro_torch.serve import metrics as SM
+    SM.reset()
     s = TE.stats()
-    assert s["serve"] == EC._SERVE_ZERO
-    assert s["auto"] == EC._AUTO_ZERO
-    assert s["block_table"] == EC._BLOCK_TABLE_ZERO
+    assert s["serve"] == JEC._SERVE_ZERO
+    assert s["auto"] == JEC._AUTO_ZERO
+    assert s["block_table"] == {"device_fallbacks": 0,
+                                "path": str(AT.table_path())}
     assert sorted(s) == ["auto", "backends", "block_table", "faults",
                          "plan_cache", "plans", "pyramid", "serve",
                          "telemetry"]

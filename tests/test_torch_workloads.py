@@ -450,13 +450,13 @@ def test_execute_checks_leaves_and_levels():
 
 def test_capabilities_expose_workload_flags():
     rows = {row["backend"]: row for row in TE.capability_matrix()}
-    assert set(rows) == {"torch", "cuda", "conv"}
+    assert set(rows) == {"torch", "cuda", "conv", "auto"}
     for name, row in rows.items():
         assert row["packets"] is True and row["supports_3d"] is True
         assert row["temporal_fuse"] is (name != "cuda")
     ref = {row["backend"]: row for row in JB.capability_matrix()}
     for port, theirs in (("torch", "jnp"), ("cuda", "pallas"),
-                         ("conv", "xla")):
+                         ("conv", "xla"), ("auto", "auto")):
         assert rows[port]["temporal_fuse"] == ref[theirs]["temporal_fuse"]
 
 
