@@ -118,6 +118,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
              foreign-fingerprint entry skipped and counted); and a
              ``torch.profiler`` trace of a warmed server holding one
              pinned host-to-device copy per forward batch;
+3g. LM     — the dense LM training path: qwen2-0.5b at full width and
+             depth (501M parameters, 14 stacked leaves; the SMOKE config
+             under --cpu-rehearsal), seq 4096, global batch 4 as 2
+             microbatches, SyntheticSource seed 0, through
+             ``repro_torch.runtime.steps.train_step``: 4 steps with
+             grad_compression "dwt:2" (cdf97) and 2 without, every loss
+             finite, K1 launched exactly as the compression plans say
+             (``plan.launches`` of each leaf's forward and inverse plan
+             per step), per-step device spans (``train.grads``,
+             ``train.compress`` and its DWT ``execute.*``, ``train.adamw``),
+             tokens/s and peak device memory; on one step's real
+             gradients every K1 launch of compress/decompress against
+             its plain version bit for bit, ``g_hat`` against the same
+             transforms on backend "torch" to CROSS_TOL, each slice 1/16
+             of its padded tile, and K1's share of compression (CUDA
+             events around each launch); prefill of 16 tokens and one
+             decode step against forward within 2e-2; a restart through
+             ``train_loop.train`` at full width cut to 2 layers (3 steps,
+             a checkpoint per step in ``build/chip_smoke/phase3g/``,
+             deleted after; step 1's restored) replaying step 3's loss
+             within 1e-5 relative;
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
@@ -1078,8 +1099,12 @@ def phase_telemetry(torch, R, TW, PW, device, cpu, gen, x, timer):
     doc = json.loads(trace.read_text())
     names = {e.get("name") for e in doc.get("traceEvents", [])
              if e.get("cat") == "user_annotation"}
+    cats = {}
+    for e in doc.get("traceEvents", []):
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
     check(set(SPAN_NAMES) <= names,
-          f"torch.profiler trace lacks spans {set(SPAN_NAMES) - names}")
+          f"torch.profiler trace lacks spans {set(SPAN_NAMES) - names} "
+          f"(events by category: {cats})")
     if cuda:
         inside = _profiled_kernels_inside(doc, SPAN_NAMES)
         print(f"profiler: kernels by the span they were launched in: "
@@ -1940,6 +1965,395 @@ def phase_serving(torch, R, TW, PW, device, cpu, gen):
     return launched
 
 
+# phase 3g: the dense LM training path at qwen2-0.5b's full width and
+# depth (SMOKE under --cpu-rehearsal), gradient compression dwt:2 (cdf97)
+LM = dict(arch="qwen2-0.5b", seq=4096, batch=4, compressed=4, plain=2,
+          prompt=16, restart_layers=2, restart_steps=3)
+LM_REHEARSAL = dict(LM, seq=32, compressed=2, plain=1, prompt=8)
+DECODE_TOL = 2e-2       # prefill/decode vs forward (tests/test_models.py:43)
+RESTART_RTOL = 1e-5
+
+
+@contextlib.contextmanager
+def k1_calls(TW, fn):
+    """Route every K1 call through ``fn(kernel, win, planes)`` (the
+    executor looks ``tap_window`` up on the module at each call)."""
+    kernel = TW.tap_window
+    TW.tap_window = lambda win, planes: fn(kernel, win, planes)
+    try:
+        yield
+    finally:
+        TW.tap_window = kernel
+
+
+def _compression_launches(E, CMP, pytree, params, levels, device):
+    """K1 launches of one compressed step: forward and inverse plan of
+    every leaf's tile, ``plan.launches`` each; and the tiles."""
+    tiles = [CMP.tile_shape(p.numel(), levels) for p in pytree.leaves(params)]
+    plans = [E.get_plan(scheme=CMP.SCHEME, levels=levels, shape=t,
+                        device=device) for t in tiles]
+    return sum(2 * p.launches for p in plans), tiles
+
+
+STEP_KERNELS = (("K1 tap_window", ("tap_window",)),
+                ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+                ("softmax / logsumexp", ("softmax", "logsumexp")),
+                ("reduction", ("reduce",)),
+                ("copy / cast / cat / index", ("copy", "cat", "index",
+                                               "gather", "scatter")),
+                ("other elementwise", ("elementwise",)))
+
+
+def profile_step(torch, ST, state, batch, cfg, run, cuda, sync):
+    """One train step inside ``torch.profiler`` (device activity only, so
+    each kernel is counted once): device time by kernel, summed into
+    coarse groups by name (first match in STEP_KERNELS) and the top
+    kernels; "not measured" where the trace holds no device time (the
+    CPU).  Returns the state after the step (one more step of
+    the run)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]
+    sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, _ = ST.train_step(state, batch, cfg, run)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and str(e.device_type).endswith("CUDA"):
+            rows.append((e.key, e.count, us / 1e3))
+    total = sum(ms for _, _, ms in rows)
+    if not total:
+        print("profiled step: device time by kernel not measured "
+              "(the trace holds no device time)")
+        return state
+    groups = {}
+    for name, _, ms in rows:
+        low = name.lower()
+        group = next((g for g, keys in STEP_KERNELS
+                      if any(k in low for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    print(f"profiled compressed step: {total:.1f} ms of device time in "
+          f"{len(rows)} kernels (torch.profiler, self device time) over "
+          f"{wall_ms:.1f} ms of wall time: the card busy "
+          f"{100 * total / wall_ms:.1f}% (kernels may overlap)")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {g:26s} {ms:9.2f} ms  {100 * ms / total:5.1f}%")
+    for name, n, ms in sorted(rows, key=lambda r: -r[2])[:12]:
+        print(f"  top: {ms:9.2f} ms  x{n:<5d} {name[:100]}")
+    print(json.dumps({"phase3g_profile": {
+        "device_ms": total, "wall_ms": wall_ms, "groups_ms": groups,
+        "top": [[name[:100], n, ms] for name, n, ms in
+                sorted(rows, key=lambda r: -r[2])[:12]]}}))
+    return state
+
+
+def phase_lm(torch, R, TW, PW, device, cpu):
+    """Phase 3g: qwen2-0.5b trains on the card through
+    ``repro_torch.runtime.steps.train_step`` (compressed and plain steps)
+    and ``train_loop.train`` (a restart at 2 layers); compression runs K1,
+    held bit for bit against its plain version and to CROSS_TOL against
+    backend "torch"; prefill + decode against forward.  Returns the
+    launches of each kernel it drove."""
+    print("== phase 3g: the dense LM training path (qwen2-0.5b, "
+          "grad_compression dwt:2)", flush=True)
+    import dataclasses
+    import math
+    import os
+    import shutil
+    from repro_torch import engine as E
+    from repro_torch import pytree
+    from repro_torch import telemetry as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import compression as CMP
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.models import lm as LMm
+    from repro_torch.runtime import steps as ST
+    from repro_torch.runtime import train_loop as TL
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sz = LM_REHEARSAL if cpu else LM
+    cfg, run = get_config(sz["arch"], smoke=cpu)
+    run_c = dataclasses.replace(run, grad_compression="dwt:2",
+                                compression_wavelet="cdf97",
+                                checkpoint_every=0)
+    run_p = dataclasses.replace(run_c, grad_compression="none")
+    levels = ST.compression_levels(run_c)
+    shape = ShapeConfig("phase3g", "train", sz["seq"], sz["batch"])
+    pipe = make_pipeline(cfg, seed=0)
+    counters = kernels(TW, PW)
+    launched = {name: 0 for name in counters}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = ST.init_train_state(gen, cfg, run_c, device=device)
+    # no reference to the first parameters outlives this line: the step
+    # returns new ones, and held ones would add to the peak
+    shapes = [p.shape for p in pytree.leaves(state.params)]
+    n_params = sum(math.prod(s) for s in shapes)
+    print(f"{cfg.arch_id}: {n_params:,} parameters in {len(shapes)} "
+          f"leaves (n_params() {cfg.n_params():,}); {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, heads {cfg.n_heads}->"
+          f"{cfg.n_heads_padded}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} padded to "
+          f"{pytree.leaves(state.params['embed'])[0].shape[0]}, "
+          f"{cfg.dtype} compute on {cfg.param_dtype} parameters; seq "
+          f"{sz['seq']}, global batch {sz['batch']}, grad_accum "
+          f"{run_c.grad_accum}", flush=True)
+    per_step, tiles = _compression_launches(E, CMP, pytree, state.params,
+                                            levels, device)
+    print(f"compression: {len(tiles)} tiles per step, largest "
+          f"{max(tiles)}, K1 launches per compressed step {per_step} "
+          f"(sum of the plans' launches, forward and inverse)")
+
+    def zero_counts():
+        for k in counters.values():
+            k.launches = 0
+
+    def read_counts(what, k1, count=True):
+        """Check the launches since ``zero_counts``: K1 ``k1`` times (none
+        on the CPU, where the wrappers run the plain versions), K2/K3
+        never; add them to the phase's launches unless they were made
+        to compare K1 with its plain version."""
+        got = {n: k.launches for n, k in counters.items()}
+        want = {"tap_window": 0 if cpu else k1, "pyramid_forward": 0,
+                "pyramid_inverse": 0}
+        check(got == want, f"phase 3g {what} launched {got}, "
+                           f"expected {want}")
+        if count:
+            for n in launched:
+                launched[n] += got[n]
+        return got
+
+    # -- the main run: compressed steps, then plain ones ----------------
+    zero_counts()
+    T.set_mode("spans")
+    T.TRACER.clear()
+    rows = []
+    n_steps = sz["compressed"] + sz["plain"]
+    for i in range(n_steps):
+        r = run_c if i < sz["compressed"] else run_p
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in pipe.batch_at(i, shape).items()}
+        sync()
+        t0 = time.perf_counter()
+        state, m = ST.train_step(state, batch, cfg, r)
+        loss = float(m["loss"])
+        sync()
+        wall = time.perf_counter() - t0
+        spans = {}
+        for rec in T.TRACER.records():
+            spans[rec.name] = spans.get(rec.name, 0.0) + rec.dur_s
+        T.TRACER.clear()
+        check(math.isfinite(loss), f"phase 3g: step {i} loss {loss}")
+        rows.append(dict(step=i, compression=r.grad_compression, loss=loss,
+                         wall_ms=wall * 1e3, **{k: v * 1e3
+                                               for k, v in spans.items()}))
+    T.set_mode("counters")
+    got = read_counts("main run", sz["compressed"] * per_step)
+    no_fallbacks("phase 3g, train steps")
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    tokens = sz["seq"] * sz["batch"]
+    dwt = ("execute.forward", "execute.inverse")
+    print("step  compression  loss      step_ms   grads_ms  compress_ms "
+          "dwt_ms   adamw_ms  wall_ms   tokens/s")
+    for row in rows:
+        print(f"{row['step']:4d}  {row['compression']:11s}  "
+              f"{row['loss']:.4f}  {row.get('train.step', 0):8.2f}  "
+              f"{row.get('train.grads', 0):8.2f}  "
+              f"{row.get('train.compress', 0):11.2f}  "
+              f"{sum(row.get(k, 0) for k in dwt):7.2f}  "
+              f"{row.get('train.adamw', 0):8.2f}  {row['wall_ms']:8.2f}  "
+              f"{tokens / row['wall_ms'] * 1e3:9.1f}")
+    print(f"K1 launches per compressed step {per_step}; in the main run "
+          f"{got['tap_window']}; peak device memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+    steady = rows[1:sz["compressed"]] or rows[:1]    # after the first
+    plain = rows[sz["compressed"]:]
+    med = lambda rs, k: statistics.median(r.get(k, 0.0) for r in rs)
+    print(json.dumps({"phase3g": {
+        "params": n_params, "tokens_per_step": tokens,
+        "compressed_step_ms": med(steady, "train.step"),
+        "compressed_wall_ms": med(steady, "wall_ms"),
+        "grads_ms": med(steady, "train.grads"),
+        "compress_ms": med(steady, "train.compress"),
+        "dwt_ms": statistics.median(sum(r.get(k, 0.0) for k in dwt)
+                                    for r in steady),
+        "adamw_ms": med(steady, "train.adamw"),
+        "plain_step_ms": med(plain, "train.step"),
+        "plain_wall_ms": med(plain, "wall_ms"),
+        "tokens_per_s": tokens / med(steady, "wall_ms") * 1e3,
+        "tokens_per_s_plain": tokens / med(plain, "wall_ms") * 1e3,
+        "peak_bytes": peak, "k1_per_step": per_step}}))
+
+    # -- where one compressed step's device time goes (torch.profiler) --
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in pipe.batch_at(n_steps, shape).items()}
+    zero_counts()
+    state = profile_step(torch, ST, state, batch, cfg, run_c, cuda, sync)
+    read_counts("profiled step", per_step)
+
+    # -- one step's real gradients through compression, compared --------
+    grads, _ = ST.grads_and_metrics(state.params, batch, cfg, run_c)
+    phase = int(state.step) % CMP.n_phases(levels)
+    worst, n_cmp = 0.0, 0
+
+    def versus_plain(kernel, win, planes):
+        nonlocal worst, n_cmp
+        out = kernel(win, planes)
+        ref = TW.tap_window_ref(win, planes)
+        worst = max([worst] + [max_abs(a, b) for a, b in zip(out, ref)])
+        n_cmp += 1
+        return out
+
+    cross = -math.inf
+    zero_counts()
+    with torch.no_grad(), k1_calls(TW, versus_plain):
+        for g, e in zip(pytree.leaves(grads), pytree.leaves(state.efb)):
+            acc = e + g
+            c = CMP.compress(acc, phase, levels)
+            h, w = CMP.tile_shape(g.numel(), levels)
+            check(c.numel() * CMP.n_phases(levels) == h * w,
+                  f"phase 3g: slice of {c.numel()} for a {h}x{w} tile")
+            g_hat = CMP.decompress(c, phase, g.shape, levels)
+            # the same transform pair on backend "torch"
+            kw = dict(wavelet="cdf97", scheme=CMP.SCHEME, backend="torch",
+                      device=device)
+            tile, n = CMP._tile_2d(acc, levels)
+            flat = R.flatten_pyramid(R.dwt2(tile, levels=levels, **kw))
+            rows_ = flat.shape[0] // CMP.n_phases(levels)
+            keep = torch.zeros_like(flat)
+            keep[phase * rows_:(phase + 1) * rows_] = \
+                flat[phase * rows_:(phase + 1) * rows_]
+            ref = R.idwt2(R.unflatten_pyramid(keep, levels), **kw)
+            ref = ref.reshape(-1)[:n].reshape(g.shape)
+            cross = max(cross, rel_violation(g_hat, ref,
+                                             **CROSS_TOL["float32"]))
+            del acc, c, g_hat, tile, flat, keep, ref
+    read_counts("comparison with the plain version", per_step, count=False)
+    check(n_cmp == per_step,
+          f"phase 3g: {n_cmp} K1 calls compared, expected {per_step}")
+    check(worst == 0.0, f"phase 3g: compression's K1 differs from its "
+                        f"plain version by {worst}")
+    check(cross <= 0.0, f"phase 3g: g_hat on cuda vs torch exceeds "
+                        f"CROSS_TOL by {cross}")
+    print(f"compression on one step's gradients: {n_cmp} K1 launches vs "
+          f"the plain version, max |diff| {worst}; g_hat cuda vs torch "
+          f"within CROSS_TOL (worst margin {cross:.3e}); every slice 1/"
+          f"{CMP.n_phases(levels)} of its padded tile")
+
+    # K1's share of compression: CUDA events around each K1 launch
+    events = []
+
+    def timed(kernel, win, planes):
+        if not cuda:
+            return kernel(win, planes)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = kernel(win, planes)
+        b.record()
+        events.append((a, b))
+        return out
+
+    zero_counts()
+    with k1_calls(TW, timed):
+        sync()
+        t0 = time.perf_counter()
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        CMP.compress_with_feedback(grads, state.efb, state.step, levels)
+        if cuda:
+            end.record()
+        sync()
+    if cuda:
+        total = start.elapsed_time(end)
+        k1 = sum(a.elapsed_time(b) for a, b in events)
+        print(f"compress_with_feedback alone: {total:.2f} ms (CUDA events), "
+              f"of which K1 {k1:.2f} ms over {len(events)} launches "
+              f"({100 * k1 / total:.1f}%)")
+        print(json.dumps({"phase3g_k1_share": {
+            "compress_ms": total, "k1_ms": k1, "k1_launches": len(events)}}))
+    read_counts("timed compression", per_step)
+    del grads
+    no_fallbacks("phase 3g, compression checks")
+
+    # -- prefill + decode against forward, at full width ----------------
+    p = sz["prompt"]
+    toks = batch["tokens"][:2, :p + 1]
+    with torch.no_grad():
+        full, _ = LMm.forward(state.params, toks, cfg)
+        lg0, cache = ST.prefill_step(state.params, {"tokens": toks[:, :p]},
+                                     cfg, 2 * p)
+        lg, cache = ST.decode_step(state.params, cache, toks[:, p:p + 1], cfg)
+    v = cfg.vocab_size
+    lsm = lambda x: torch.log_softmax(x.float()[..., :v], -1)
+    err = max(float((lsm(lg0) - lsm(full[:, p - 1])).abs().max()),
+              float((lsm(lg) - lsm(full[:, p])).abs().max()))
+    check(err < DECODE_TOL, f"phase 3g: prefill/decode vs forward {err}")
+    print(f"prefill of {p} tokens + 1 decode step vs forward: max "
+          f"|log-softmax diff| {err:.3e} (bound {DECODE_TOL})")
+    del state, full, cache, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- restart through train_loop.train, depth cut --------------------
+    cfg_r = dataclasses.replace(cfg, n_layers=sz["restart_layers"])
+    print(f"restart check: {cfg.arch_id} at full width, depth cut "
+          f"{cfg.n_layers} -> {cfg_r.n_layers} layers (a smaller "
+          f"checkpoint); {sz['restart_steps']} steps, checkpoint_every=1")
+    work = ROOT / "build" / "chip_smoke" / "phase3g"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "b").mkdir(parents=True)
+    run_r = dataclasses.replace(run_c, checkpoint_every=1,
+                                keep_checkpoints=5,
+                                checkpoint_dir=str(work / "a"))
+    per_step_r = None
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        first = TL.train(cfg_r, run_r, pipe, shape, sz["restart_steps"],
+                         log_every=0, device=device)
+        per_step_r, _ = _compression_launches(E, CMP, pytree,
+                                              first.state.params, levels,
+                                              device)
+        first.state = None
+        t1 = time.perf_counter()
+        # a job killed after step 1's checkpoint restarts from it
+        os.symlink(work / "a" / "step_000000001",
+                   work / "b" / "step_000000001")
+        again = TL.train(cfg_r, dataclasses.replace(
+            run_r, checkpoint_dir=str(work / "b")), pipe, shape,
+            sz["restart_steps"], log_every=0, device=device)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    read_counts("restart", (sz["restart_steps"] + len(again.losses))
+                * per_step_r)
+    check(again.restored_from == 1 and len(again.losses) == 1,
+          f"phase 3g: restart from {again.restored_from} ran "
+          f"{len(again.losses)} steps")
+    a, b = first.losses[-1], again.losses[-1]
+    rel = abs(a - b) / abs(a)
+    check(rel <= RESTART_RTOL, f"phase 3g: step 3 loss {b} after restart "
+                               f"vs {a} uninterrupted (rel {rel})")
+    print(f"restart: losses {first.losses} uninterrupted, step 3 after "
+          f"restoring step 1's checkpoint {again.losses}; rel diff {rel:.3e}"
+          f" ({'bit for bit' if a == b else 'not bit for bit'}); "
+          f"{t1 - t0:.1f} s + {t2 - t1:.1f} s with checkpoints")
+    no_fallbacks("phase 3g, restart")
+    print(f"phase 3g launches (driven paths): {launched}")
+    print(f"phase 3g took {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def _pyramid_bytes(PP, pw, h, w):
     """Modelled and unique bytes of one fused-pyramid launch per image."""
     return PP.pyramid_hbm_bytes((h, w), 4, pw.level_blocks,
@@ -2255,6 +2669,9 @@ def main(argv=None):
                                  gen).items():
         launched[name] += n
     no_fallbacks("phase 3f")
+    for name, n in phase_lm(torch, R, TW, PW, device, cpu).items():
+        launched[name] += n
+    no_fallbacks("phase 3g")
     entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
     no_fallbacks("phase 4")
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -12,7 +12,10 @@ larger than the card stream band by band from host memory
 (``stream_dwt2``).  ``backend="auto"`` picks the backend and fuse mode
 from measurements (:mod:`repro_torch.profiler`), and
 :class:`~repro_torch.serve.DwtServer` batches concurrent requests onto
-cached plans (:mod:`repro_torch.serve`).  Entry points run on the card
+cached plans (:mod:`repro_torch.serve`).  Gradient compression
+(:mod:`repro_torch.core.compression`) runs the transform inside the
+training step of the dense and VLM language models
+(:mod:`repro_torch.runtime.train_loop`).  Entry points run on the card
 unless the caller passes ``device="cpu"``.
 
     >>> import torch, repro_torch

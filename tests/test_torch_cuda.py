@@ -3,7 +3,9 @@ fused-pyramid kernels K2/K3), against their plain versions; the packet
 and 3-D paths through K1 against the same calls on the CPU; the conv
 backend on the card at full fp32; and ``backend="auto"`` and the server
 on the card (cold rule, warmed store, served results bit for bit, two
-workers on their own streams, pinned host buffers).
+workers on their own streams, pinned host buffers); gradient compression
+through K1 (bit for bit against the plain version at qwen2-0.5b's tile
+shapes) and one compressed train step of qwen2-0.5b at full width.
 
 Marked ``cuda``: where no CUDA device is present every test skips with
 that reason.  On a machine with the card (no JAX needed):
@@ -674,3 +676,85 @@ def test_served_outputs_and_staging_are_pinned(cuda_device, auto_files):
     for pyr in out:
         for a in [pyr.ll] + [d for dd in pyr.details for d in dd]:
             assert torch.from_numpy(a).is_pinned()
+
+
+# ---------------------------------------------------------------------------
+# Gradient compression and the LM training path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(537600, 256), (4864, 96), (17, 31)])
+def test_compression_k1_equals_plain_version(cuda_device, monkeypatch,
+                                             shape):
+    """compress/decompress on the card: every K1 launch equals the plain
+    version on the same planes bit for bit, 8 launches per tensor at 2
+    levels, and the result equals the same calls on the CPU to
+    CROSS_TOL (the first shape is qwen2-0.5b's tied embedding tile)."""
+    from repro_torch.core import compression as CMP
+    if shape[0] == 537600:
+        g = torch.randn(153600, 896, generator=torch.Generator(
+            device=cuda_device).manual_seed(0), device=cuda_device)
+    else:
+        g = torch.randn(shape, generator=torch.Generator().manual_seed(1)
+                        ).to(cuda_device)
+    worst = []
+    kernel = TW.tap_window
+
+    def versus_plain(win, planes):
+        out = kernel(win, planes)
+        ref = TW.tap_window_ref(win, planes)
+        worst.append(max(float((a - b).abs().max())
+                         for a, b in zip(out, ref)))
+        return out
+
+    monkeypatch.setattr(TW, "tap_window", versus_plain)
+    n = TW.KERNEL.launches
+    c = CMP.compress(g, 5, 2)
+    back = CMP.decompress(c, 5, g.shape, 2)
+    torch.cuda.synchronize()
+    assert TW.KERNEL.launches - n == 8 and len(worst) == 8
+    assert max(worst) == 0.0
+    h, w = CMP.tile_shape(g.numel(), 2)
+    assert c.numel() * 16 == h * w
+    if g.numel() < 10 ** 6:
+        monkeypatch.setattr(TW, "tap_window", kernel)
+        c_cpu = CMP.compress(g.cpu(), 5, 2)
+        torch.testing.assert_close(c.cpu(), c_cpu, **CROSS_TOL["float32"])
+        torch.testing.assert_close(
+            back.cpu(), CMP.decompress(c_cpu, 5, g.shape, 2),
+            **CROSS_TOL["float32"])
+
+
+def test_train_step_at_full_width_on_the_card(cuda_device):
+    """One compressed train step of qwen2-0.5b at full width, depth cut
+    to 2 layers: finite loss, every parameter moved, K1 launched by
+    compression exactly as the plans say (14 leaves x 8), and prefill +
+    decode against forward within the reference's 2e-2."""
+    import dataclasses
+    from repro_torch import pytree
+    from repro_torch.configs.qwen2_0_5b import FULL, RUN
+    from repro_torch.runtime import steps as ST
+    cfg = dataclasses.replace(FULL, n_layers=2)
+    run = dataclasses.replace(RUN, grad_compression="dwt:2")
+    state = ST.init_train_state(torch.Generator(
+        device=cuda_device).manual_seed(0), cfg, run, device=cuda_device)
+    before = pytree.leaves(state.params)
+    toks = torch.randint(0, cfg.vocab_size, (4, 512), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    n = TW.KERNEL.launches
+    state, m = ST.train_step(state, {"tokens": toks}, cfg, run)
+    torch.cuda.synchronize()
+    assert TW.KERNEL.launches - n == 14 * 8
+    assert bool(torch.isfinite(m["loss"])) and int(state.step) == 1
+    moved = [bool((a != b.detach()).any())
+             for a, b in zip(before, pytree.leaves(state.params))]
+    assert all(moved)
+    with torch.no_grad():
+        full, _ = ST.lm.forward(state.params, toks[:2, :17], cfg)
+        lg, cache = ST.prefill_step(state.params, {"tokens": toks[:2, :16]},
+                                    cfg, 32)
+        lg1, _ = ST.decode_step(state.params, cache, toks[:2, 16:17], cfg)
+    v = cfg.vocab_size
+    lsm = lambda x: torch.log_softmax(x.float()[..., :v], -1)
+    assert float((lsm(lg) - lsm(full[:, 15])).abs().max()) < 2e-2
+    assert float((lsm(lg1) - lsm(full[:, 16])).abs().max()) < 2e-2

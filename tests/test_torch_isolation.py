@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package, and importing the port — or
-driving its CPU paths, the profiler and a CPU server included — builds
+neither JAX nor the reference package nor ``ml_dtypes`` (which ships
+with JAX only), and importing the port — or driving its CPU paths, the
+profiler, a CPU server and a compressed train step included — builds
 nothing (each CUDA source is compiled at its kernels' first launch)."""
 import os
 import re
@@ -12,8 +13,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)(\.|\s|$)",
+    re.MULTILINE)
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -49,8 +51,24 @@ recs = profiler.warm_store(shape=(1, 16, 16), levels=1, reps=1,
 key = repro_torch.PlanKey("cdf97", "ns-polyconv", 1, (1, 16, 16), "float32",
                           "auto", False, "none", "periodic", device="cpu")
 assert recs and profiler.choose(key).source == "store"
+# the LM slice: a compressed train step, prefill and decode on the CPU
+import dataclasses
+from repro_torch.configs.registry import get_config
+from repro_torch.runtime import steps
+cfg, run = get_config("qwen2-0.5b", smoke=True)
+run = dataclasses.replace(run, grad_compression="dwt:2")
+state = steps.init_train_state(torch.Generator().manual_seed(0), cfg, run,
+                               device="cpu")
+toks = torch.randint(0, cfg.vocab_size, (4, 32),
+                     generator=torch.Generator().manual_seed(1))
+state, metrics = steps.train_step(state, {"tokens": toks}, cfg, run)
+assert int(state.step) == 1 and bool(torch.isfinite(metrics["loss"]))
+logits, cache = steps.prefill_step(state.params, {"tokens": toks[:, :8]},
+                                   cfg, 16)
+logits, cache = steps.decode_step(state.params, cache, toks[:, 8:9], cfg)
+assert int(cache["pos"]) == 9
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
 from repro_torch.kernels import pyramid_window, tap_window
 for lib in (tap_window.LIBRARY, pyramid_window.LIBRARY):
