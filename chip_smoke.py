@@ -139,6 +139,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
              a checkpoint per step in ``build/chip_smoke/phase3g/``,
              deleted after; step 1's restored) replaying step 3's loss
              within 1e-5 relative;
+3h. families — the MoE, RWKV6, Mamba2-hybrid and Whisper families at
+             their published widths, depth cut to fit one card beside
+             their fp32 state (``FAMILIES``: mixtral-8x7b 1 of 32 layers,
+             rwkv6-3b 2 of 32 at seq 1024, zamba2-2.7b 12 of 54 with 2
+             shared-attention invocations, whisper-medium whole; seq 4096,
+             global batch 4 in the microbatches listed; the SMOKE configs
+             under --cpu-rehearsal), each in turn after the last one's
+             state is freed: 2 steps with grad_compression "dwt:2"
+             (cdf97) and 1 without, every loss finite and the MoE aux
+             loss above 0, K1 launched exactly as the compression plans
+             say, every tile within K1's int32 index math, the
+             ``train.*`` device spans, tokens/s and peak memory; one
+             profiled compressed step; every K1 launch of one step's
+             compression against its plain version bit for bit
+             (mixtral's (1835008, 256) expert tiles included) and
+             ``g_hat`` against backend "torch" to CROSS_TOL; prefill +
+             decode (whisper: its prefill + 4 decode steps) against the
+             forward within the reference's 2e-2 (moe, encdec) / 8e-2
+             (ssm, hybrid) in float32 compute, the bfloat16 difference
+             printed beside it;
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
@@ -2004,15 +2024,18 @@ STEP_KERNELS = (("K1 tap_window", ("tap_window",)),
                 ("other elementwise", ("elementwise",)))
 
 
-def profile_step(torch, ST, state, batch, cfg, run, cuda, sync):
+def profile_step(torch, ST, box, batch, cfg, run, cuda, sync,
+                 label="phase3g"):
     """One train step inside ``torch.profiler`` (device activity only, so
     each kernel is counted once): device time by kernel, summed into
     coarse groups by name (first match in STEP_KERNELS) and the top
-    kernels; "not measured" where the trace holds no device time (the
-    CPU).  Returns the state after the step (one more step of
-    the run)."""
+    kernels, printed as the JSON line ``{label}_profile``; "not measured"
+    where the trace holds no device time (the CPU).  The state comes in
+    ``box`` (a one-element list) as :func:`train_rows` says; returns the
+    state after the step (one more step of the run)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]
+    state = box.pop()
     sync()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -2044,11 +2067,166 @@ def profile_step(torch, ST, state, batch, cfg, run, cuda, sync):
         print(f"  {g:26s} {ms:9.2f} ms  {100 * ms / total:5.1f}%")
     for name, n, ms in sorted(rows, key=lambda r: -r[2])[:12]:
         print(f"  top: {ms:9.2f} ms  x{n:<5d} {name[:100]}")
-    print(json.dumps({"phase3g_profile": {
+    print(json.dumps({f"{label}_profile": {
         "device_ms": total, "wall_ms": wall_ms, "groups_ms": groups,
         "top": [[name[:100], n, ms] for name, n, ms in
                 sorted(rows, key=lambda r: -r[2])[:12]]}}))
     return state
+
+
+class Launches:
+    """The launch counters of a phase: ``zero()`` before a driven path,
+    ``read(what, k1)`` after it checks K1 ran ``k1`` times (none on the
+    CPU, where the wrappers run the plain versions) and K2/K3 never, and
+    adds the launches to the phase's own unless they were made to
+    compare K1 with its plain version."""
+
+    def __init__(self, TW, PW, cpu, phase):
+        self.counters = kernels(TW, PW)
+        self.launched = {name: 0 for name in self.counters}
+        self.cpu, self.phase = cpu, phase
+
+    def zero(self):
+        for k in self.counters.values():
+            k.launches = 0
+
+    def read(self, what, k1, count=True):
+        got = {n: k.launches for n, k in self.counters.items()}
+        want = {"tap_window": 0 if self.cpu else k1, "pyramid_forward": 0,
+                "pyramid_inverse": 0}
+        check(got == want, f"{self.phase} {what} launched {got}, "
+                           f"expected {want}")
+        if count:
+            for n in self.launched:
+                self.launched[n] += got[n]
+        return got
+
+
+def train_rows(torch, T, ST, box, pipe, shape, cfg, runs, device, sync,
+               where):
+    """One train step per run config in ``runs`` (batches ``pipe`` gives
+    at steps 0, 1, ...) under ``spans`` telemetry: each step's loss, aux
+    loss, wall ms (a synchronise around it) and its ``train.*`` and
+    ``execute.*`` device spans in ms.  Every loss must be finite.
+
+    The state comes in ``box``, a one-element list the caller holds no
+    other reference beside: a step returns new trees, and a caller's
+    reference to the first state would keep it alive beside every later
+    step's (25.6 GiB more at mixtral's width).  Returns (the new state,
+    the rows)."""
+    import math
+    state = box.pop()
+    T.set_mode("spans")
+    T.TRACER.clear()
+    rows = []
+    try:
+        for i, r in enumerate(runs):
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in pipe.batch_at(i, shape).items()}
+            sync()
+            t0 = time.perf_counter()
+            state, m = ST.train_step(state, batch, cfg, r)
+            loss, aux = float(m["loss"]), float(m["aux"])
+            sync()
+            wall = time.perf_counter() - t0
+            spans = {}
+            for rec in T.TRACER.records():
+                spans[rec.name] = spans.get(rec.name, 0.0) + rec.dur_s * 1e3
+            T.TRACER.clear()
+            check(math.isfinite(loss), f"{where}: step {i} loss {loss}")
+            rows.append(dict(step=i, compression=r.grad_compression,
+                             loss=loss, aux=aux, wall_ms=wall * 1e3,
+                             **spans))
+    finally:
+        T.set_mode("counters")
+    return state, rows
+
+
+DWT_SPANS = ("execute.forward", "execute.inverse")
+
+
+def print_rows(rows, tokens):
+    print("step  compression  loss      step_ms   grads_ms  compress_ms "
+          "dwt_ms   adamw_ms  wall_ms   tokens/s")
+    for row in rows:
+        print(f"{row['step']:4d}  {row['compression']:11s}  "
+              f"{row['loss']:.4f}  {row.get('train.step', 0):8.2f}  "
+              f"{row.get('train.grads', 0):8.2f}  "
+              f"{row.get('train.compress', 0):11.2f}  "
+              f"{sum(row.get(k, 0) for k in DWT_SPANS):7.2f}  "
+              f"{row.get('train.adamw', 0):8.2f}  {row['wall_ms']:8.2f}  "
+              f"{tokens / row['wall_ms'] * 1e3:9.1f}")
+
+
+def hold_k1(torch, R, TW, CMP, pytree, grads, efb, step, levels, device,
+            where):
+    """Compression of one step's real gradients ``grads`` (with error
+    feedback ``efb``) through K1, every launch compared with its plain
+    version on the same planes, and ``g_hat`` against the same transform
+    pair on backend "torch".  Returns (the largest K1 |diff|, the K1
+    calls compared, the worst ``CROSS_TOL`` margin)."""
+    phase = int(step) % CMP.n_phases(levels)
+    worst, n_cmp = 0.0, 0
+
+    def versus_plain(kernel, win, planes):
+        nonlocal worst, n_cmp
+        out = kernel(win, planes)
+        ref = TW.tap_window_ref(win, planes)
+        worst = max([worst] + [max_abs(a, b) for a, b in zip(out, ref)])
+        n_cmp += 1
+        return out
+
+    import math
+    cross = -math.inf
+    with torch.no_grad(), k1_calls(TW, versus_plain):
+        for g, e in zip(pytree.leaves(grads), pytree.leaves(efb)):
+            acc = e + g
+            c = CMP.compress(acc, phase, levels)
+            h, w = CMP.tile_shape(g.numel(), levels)
+            check(c.numel() * CMP.n_phases(levels) == h * w,
+                  f"{where}: slice of {c.numel()} for a {h}x{w} tile")
+            g_hat = CMP.decompress(c, phase, g.shape, levels)
+            del c
+            # the same transform pair on backend "torch"
+            kw = dict(wavelet="cdf97", scheme=CMP.SCHEME, backend="torch",
+                      device=device)
+            tile, n = CMP._tile_2d(acc, levels)
+            del acc
+            flat = R.flatten_pyramid(R.dwt2(tile, levels=levels, **kw))
+            del tile
+            rows_ = flat.shape[0] // CMP.n_phases(levels)
+            keep = torch.zeros_like(flat)
+            keep[phase * rows_:(phase + 1) * rows_] = \
+                flat[phase * rows_:(phase + 1) * rows_]
+            del flat
+            ref = R.idwt2(R.unflatten_pyramid(keep, levels), **kw)
+            del keep
+            ref = ref.reshape(-1)[:n].reshape(g.shape)
+            cross = max(cross, rel_violation(g_hat, ref,
+                                             **CROSS_TOL["float32"]))
+            del g_hat, ref
+    return worst, n_cmp, cross
+
+
+def check_k1_tiles(E, CMP, tiles, levels, device, where):
+    """Every tile's plans fit K1's index math: the tile count under the
+    wrapper's int32 guard, each plane's rows, columns and elements under
+    2^31 (offsets past the batch are size_t in the kernel).  Returns the
+    largest plane's elements."""
+    largest = 0
+    for t in sorted(set(tiles)):
+        plan = E.get_plan(scheme=CMP.SCHEME, levels=levels, shape=t,
+                          device=device)
+        for spec in plan.level_specs:
+            hp, wp = spec.plane_shape
+            largest = max(largest, hp * wp)
+            check(hp * wp < 2 ** 31, f"{where}: a {hp}x{wp} plane of tile "
+                                     f"{t} overflows int32")
+            for win in spec.fwd_windows + spec.inv_windows:
+                check(win.tiles((1, hp, wp)) < 2 ** 31,
+                      f"{where}: tile {t} has {win.tiles((1, hp, wp))} "
+                      f"K1 tiles")
+    return largest
 
 
 def phase_lm(torch, R, TW, PW, device, cpu):
@@ -2086,8 +2264,7 @@ def phase_lm(torch, R, TW, PW, device, cpu):
     levels = ST.compression_levels(run_c)
     shape = ShapeConfig("phase3g", "train", sz["seq"], sz["batch"])
     pipe = make_pipeline(cfg, seed=0)
-    counters = kernels(TW, PW)
-    launched = {name: 0 for name in counters}
+    counts = Launches(TW, PW, cpu, "phase 3g")
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -2111,65 +2288,19 @@ def phase_lm(torch, R, TW, PW, device, cpu):
           f"{max(tiles)}, K1 launches per compressed step {per_step} "
           f"(sum of the plans' launches, forward and inverse)")
 
-    def zero_counts():
-        for k in counters.values():
-            k.launches = 0
-
-    def read_counts(what, k1, count=True):
-        """Check the launches since ``zero_counts``: K1 ``k1`` times (none
-        on the CPU, where the wrappers run the plain versions), K2/K3
-        never; add them to the phase's launches unless they were made
-        to compare K1 with its plain version."""
-        got = {n: k.launches for n, k in counters.items()}
-        want = {"tap_window": 0 if cpu else k1, "pyramid_forward": 0,
-                "pyramid_inverse": 0}
-        check(got == want, f"phase 3g {what} launched {got}, "
-                           f"expected {want}")
-        if count:
-            for n in launched:
-                launched[n] += got[n]
-        return got
-
     # -- the main run: compressed steps, then plain ones ----------------
-    zero_counts()
-    T.set_mode("spans")
-    T.TRACER.clear()
-    rows = []
+    counts.zero()
     n_steps = sz["compressed"] + sz["plain"]
-    for i in range(n_steps):
-        r = run_c if i < sz["compressed"] else run_p
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in pipe.batch_at(i, shape).items()}
-        sync()
-        t0 = time.perf_counter()
-        state, m = ST.train_step(state, batch, cfg, r)
-        loss = float(m["loss"])
-        sync()
-        wall = time.perf_counter() - t0
-        spans = {}
-        for rec in T.TRACER.records():
-            spans[rec.name] = spans.get(rec.name, 0.0) + rec.dur_s
-        T.TRACER.clear()
-        check(math.isfinite(loss), f"phase 3g: step {i} loss {loss}")
-        rows.append(dict(step=i, compression=r.grad_compression, loss=loss,
-                         wall_ms=wall * 1e3, **{k: v * 1e3
-                                               for k, v in spans.items()}))
-    T.set_mode("counters")
-    got = read_counts("main run", sz["compressed"] * per_step)
+    state = [state]         # train_rows takes the only reference
+    state, rows = train_rows(
+        torch, T, ST, state, pipe, shape, cfg,
+        [run_c] * sz["compressed"] + [run_p] * sz["plain"], device, sync,
+        "phase 3g")
+    got = counts.read("main run", sz["compressed"] * per_step)
     no_fallbacks("phase 3g, train steps")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     tokens = sz["seq"] * sz["batch"]
-    dwt = ("execute.forward", "execute.inverse")
-    print("step  compression  loss      step_ms   grads_ms  compress_ms "
-          "dwt_ms   adamw_ms  wall_ms   tokens/s")
-    for row in rows:
-        print(f"{row['step']:4d}  {row['compression']:11s}  "
-              f"{row['loss']:.4f}  {row.get('train.step', 0):8.2f}  "
-              f"{row.get('train.grads', 0):8.2f}  "
-              f"{row.get('train.compress', 0):11.2f}  "
-              f"{sum(row.get(k, 0) for k in dwt):7.2f}  "
-              f"{row.get('train.adamw', 0):8.2f}  {row['wall_ms']:8.2f}  "
-              f"{tokens / row['wall_ms'] * 1e3:9.1f}")
+    print_rows(rows, tokens)
     print(f"K1 launches per compressed step {per_step}; in the main run "
           f"{got['tap_window']}; peak device memory "
           f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
@@ -2182,7 +2313,7 @@ def phase_lm(torch, R, TW, PW, device, cpu):
         "compressed_wall_ms": med(steady, "wall_ms"),
         "grads_ms": med(steady, "train.grads"),
         "compress_ms": med(steady, "train.compress"),
-        "dwt_ms": statistics.median(sum(r.get(k, 0.0) for k in dwt)
+        "dwt_ms": statistics.median(sum(r.get(k, 0.0) for k in DWT_SPANS)
                                     for r in steady),
         "adamw_ms": med(steady, "train.adamw"),
         "plain_step_ms": med(plain, "train.step"),
@@ -2194,48 +2325,18 @@ def phase_lm(torch, R, TW, PW, device, cpu):
     # -- where one compressed step's device time goes (torch.profiler) --
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in pipe.batch_at(n_steps, shape).items()}
-    zero_counts()
+    counts.zero()
+    state = [state]
     state = profile_step(torch, ST, state, batch, cfg, run_c, cuda, sync)
-    read_counts("profiled step", per_step)
+    counts.read("profiled step", per_step)
 
     # -- one step's real gradients through compression, compared --------
     grads, _ = ST.grads_and_metrics(state.params, batch, cfg, run_c)
-    phase = int(state.step) % CMP.n_phases(levels)
-    worst, n_cmp = 0.0, 0
-
-    def versus_plain(kernel, win, planes):
-        nonlocal worst, n_cmp
-        out = kernel(win, planes)
-        ref = TW.tap_window_ref(win, planes)
-        worst = max([worst] + [max_abs(a, b) for a, b in zip(out, ref)])
-        n_cmp += 1
-        return out
-
-    cross = -math.inf
-    zero_counts()
-    with torch.no_grad(), k1_calls(TW, versus_plain):
-        for g, e in zip(pytree.leaves(grads), pytree.leaves(state.efb)):
-            acc = e + g
-            c = CMP.compress(acc, phase, levels)
-            h, w = CMP.tile_shape(g.numel(), levels)
-            check(c.numel() * CMP.n_phases(levels) == h * w,
-                  f"phase 3g: slice of {c.numel()} for a {h}x{w} tile")
-            g_hat = CMP.decompress(c, phase, g.shape, levels)
-            # the same transform pair on backend "torch"
-            kw = dict(wavelet="cdf97", scheme=CMP.SCHEME, backend="torch",
-                      device=device)
-            tile, n = CMP._tile_2d(acc, levels)
-            flat = R.flatten_pyramid(R.dwt2(tile, levels=levels, **kw))
-            rows_ = flat.shape[0] // CMP.n_phases(levels)
-            keep = torch.zeros_like(flat)
-            keep[phase * rows_:(phase + 1) * rows_] = \
-                flat[phase * rows_:(phase + 1) * rows_]
-            ref = R.idwt2(R.unflatten_pyramid(keep, levels), **kw)
-            ref = ref.reshape(-1)[:n].reshape(g.shape)
-            cross = max(cross, rel_violation(g_hat, ref,
-                                             **CROSS_TOL["float32"]))
-            del acc, c, g_hat, tile, flat, keep, ref
-    read_counts("comparison with the plain version", per_step, count=False)
+    counts.zero()
+    worst, n_cmp, cross = hold_k1(torch, R, TW, CMP, pytree, grads,
+                                  state.efb, state.step, levels, device,
+                                  "phase 3g")
+    counts.read("comparison with the plain version", per_step, count=False)
     check(n_cmp == per_step,
           f"phase 3g: {n_cmp} K1 calls compared, expected {per_step}")
     check(worst == 0.0, f"phase 3g: compression's K1 differs from its "
@@ -2261,7 +2362,7 @@ def phase_lm(torch, R, TW, PW, device, cpu):
         events.append((a, b))
         return out
 
-    zero_counts()
+    counts.zero()
     with k1_calls(TW, timed):
         sync()
         t0 = time.perf_counter()
@@ -2281,7 +2382,7 @@ def phase_lm(torch, R, TW, PW, device, cpu):
               f"({100 * k1 / total:.1f}%)")
         print(json.dumps({"phase3g_k1_share": {
             "compress_ms": total, "k1_ms": k1, "k1_launches": len(events)}}))
-    read_counts("timed compression", per_step)
+    counts.read("timed compression", per_step)
     del grads
     no_fallbacks("phase 3g, compression checks")
 
@@ -2316,7 +2417,7 @@ def phase_lm(torch, R, TW, PW, device, cpu):
                                 keep_checkpoints=5,
                                 checkpoint_dir=str(work / "a"))
     per_step_r = None
-    zero_counts()
+    counts.zero()
     try:
         t0 = time.perf_counter()
         first = TL.train(cfg_r, run_r, pipe, shape, sz["restart_steps"],
@@ -2335,7 +2436,7 @@ def phase_lm(torch, R, TW, PW, device, cpu):
         t2 = time.perf_counter()
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    read_counts("restart", (sz["restart_steps"] + len(again.losses))
+    counts.read("restart", (sz["restart_steps"] + len(again.losses))
                 * per_step_r)
     check(again.restored_from == 1 and len(again.losses) == 1,
           f"phase 3g: restart from {again.restored_from} ran "
@@ -2349,9 +2450,219 @@ def phase_lm(torch, R, TW, PW, device, cpu):
           f" ({'bit for bit' if a == b else 'not bit for bit'}); "
           f"{t1 - t0:.1f} s + {t2 - t1:.1f} s with checkpoints")
     no_fallbacks("phase 3g, restart")
-    print(f"phase 3g launches (driven paths): {launched}")
+    print(f"phase 3g launches (driven paths): {counts.launched}")
     print(f"phase 3g took {time.perf_counter() - t_phase:.1f} s")
-    return launched
+    return counts.launched
+
+
+# phase 3h: the MoE, RWKV6, Mamba2-hybrid and Whisper families at their
+# published widths, each cut in depth to fit one card beside its fp32
+# parameters, gradients, AdamW moments and error feedback (the SMOKE
+# configs, uncut, under --cpu-rehearsal).  Microbatches are cut from each
+# arch's RUN.grad_accum so that the global batch of 4 divides
+FAMILIES = (dict(arch="mixtral-8x7b", layers=1, seq=4096, batch=4, accum=2),
+            dict(arch="rwkv6-3b", layers=2, seq=1024, batch=4, accum=2),
+            dict(arch="zamba2-2.7b", layers=12, seq=4096, batch=4, accum=2),
+            dict(arch="whisper-medium", layers=None, seq=4096, batch=4,
+                 accum=1))
+FAMILY_REHEARSAL_SEQ = 32
+# the reference's own prefill/decode-vs-forward bounds (tests/test_models.py:43)
+FAMILY_DECODE_TOL = {"moe": 2e-2, "encdec": 2e-2, "ssm": 8e-2,
+                     "hybrid": 8e-2}
+
+
+def decode_vs_forward(torch, LMm, ST, params, batch, cfg, prompt):
+    """Max |log-softmax| difference between decoding and the full forward:
+    prefill ``prompt`` tokens and one decode step (whisper: its prefill
+    and 4 decode steps, against ``whisper_forward`` at position 3).  MoE
+    configs decode at capacity_factor 8 (tests/test_models.py:23), so no
+    token is dropped."""
+    import dataclasses
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    v = cfg.vocab_size
+    lsm = lambda x: torch.log_softmax(x.float()[..., :v], -1)
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            enc, dec = batch["enc_embeds"][:2], batch["dec_tokens"][:2, :4]
+            full, _ = LMm.whisper_forward(params, enc, dec, cfg)
+            _, cache = ST.prefill_step(params, {"enc_embeds": enc}, cfg, 0)
+            for t in range(4):
+                lg, cache = ST.decode_step(params, cache, dec[:, t:t + 1],
+                                           cfg)
+            return float((lsm(lg) - lsm(full[:, 3])).abs().max())
+        toks = batch["tokens"][:2, :prompt + 1]
+        full, _ = LMm.forward(params, toks, cfg)
+        lg0, cache = ST.prefill_step(params, {"tokens": toks[:, :prompt]},
+                                     cfg, 2 * prompt)
+        lg, cache = ST.decode_step(params, cache, toks[:, prompt:], cfg)
+    return max(float((lsm(lg0) - lsm(full[:, prompt - 1])).abs().max()),
+               float((lsm(lg) - lsm(full[:, prompt])).abs().max()))
+
+
+def phase_families(torch, R, TW, PW, device, cpu):
+    """Phase 3h: each family of FAMILIES trains on the card through
+    ``runtime.steps.train_step`` (2 compressed steps and 1 plain), one
+    step profiled, compression's K1 held bit for bit against its plain
+    version on one step's real gradients, and decoding against the
+    forward.  Returns the launches of each kernel it drove."""
+    print("== phase 3h: the MoE, RWKV6, Mamba2-hybrid and Whisper families "
+          "(grad_compression dwt:2)", flush=True)
+    import dataclasses
+    import math
+    from repro_torch import engine as E
+    from repro_torch import pytree
+    from repro_torch import telemetry as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import compression as CMP
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.models import lm as LMm
+    from repro_torch.runtime import steps as ST
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    counts = Launches(TW, PW, cpu, "phase 3h")
+    summary = {}
+    if cuda:
+        torch.cuda.init()       # the peak-memory reset needs a context
+    for fam in FAMILIES:
+        t_arch = time.perf_counter()
+        arch = fam["arch"]
+        where = f"phase 3h, {arch}"
+        cfg, run = get_config(arch, smoke=cpu)
+        full_layers = cfg.n_layers
+        if not cpu and fam["layers"]:
+            cfg = dataclasses.replace(cfg, n_layers=fam["layers"])
+        seq = FAMILY_REHEARSAL_SEQ if cpu else fam["seq"]
+        run_c = dataclasses.replace(run, grad_compression="dwt:2",
+                                    compression_wavelet="cdf97",
+                                    checkpoint_every=0,
+                                    grad_accum=fam["accum"])
+        run_p = dataclasses.replace(run_c, grad_compression="none")
+        levels = ST.compression_levels(run_c)
+        shape = ShapeConfig("phase3h", "train", seq, fam["batch"])
+        pipe = make_pipeline(cfg, seed=0)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        state = ST.init_train_state(gen, cfg, run_c, device=device)
+        # no reference to the first parameters outlives these lines: the
+        # step returns new ones, and held ones would add to the peak
+        n_leaves = len(pytree.leaves(state.params))
+        n_params = sum(p.numel() for p in pytree.leaves(state.params))
+        encdec = cfg.family == "encdec"
+        tokens = fam["batch"] * (seq + cfg.max_target_len if encdec
+                                 else seq)
+        print(f"{arch}: {n_params:,} parameters in {n_leaves} leaves "
+              f"(n_params() of the cut config {cfg.n_params():,}); "
+              f"{cfg.n_layers} of {full_layers} layers"
+              + (f" ({cfg.n_layers // cfg.hybrid_period} shared-attention "
+                 f"invocations)" if cfg.hybrid_period else "")
+              + f", d_model {cfg.d_model}, d_ff {cfg.d_ff}, family "
+              f"{cfg.family}; {'frames' if encdec else 'seq'} {seq}"
+              + (f" + {cfg.max_target_len} decoder tokens" if encdec
+                 else "")
+              + f", global batch {fam['batch']}, grad_accum "
+              f"{run_c.grad_accum} (RUN has {run.grad_accum}); "
+              f"{24 * n_params / 2 ** 30:.1f} GiB at 24 B/param",
+              flush=True)
+        per_step, tiles = _compression_launches(E, CMP, pytree, state.params,
+                                                levels, device)
+        largest = check_k1_tiles(E, CMP, tiles, levels, device, where)
+        print(f"compression: {len(tiles)} tiles per step, largest "
+              f"{max(tiles)}, largest K1 plane {largest:,} elements (under "
+              f"2^31), K1 launches per compressed step {per_step}")
+
+        # -- train: 2 compressed steps, 1 plain ----------------------------
+        counts.zero()
+        state = [state]     # train_rows takes the only reference
+        state, rows = train_rows(torch, T, ST, state, pipe, shape, cfg,
+                                 [run_c, run_c, run_p], device, sync, where)
+        counts.read(f"{arch} train steps", 2 * per_step)
+        no_fallbacks(f"{where}, train steps")
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        if cfg.is_moe:
+            check(all(math.isfinite(r["aux"]) and r["aux"] > 0
+                      for r in rows), f"{where}: MoE aux losses "
+                                      f"{[r['aux'] for r in rows]}")
+        print_rows(rows, tokens)
+        print(f"peak device memory {peak / 2 ** 30:.2f} GiB "
+              f"(max_memory_allocated)")
+
+        # -- one compressed step in torch.profiler --------------------------
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in pipe.batch_at(3, shape).items()}
+        counts.zero()
+        state = [state]
+        state = profile_step(torch, ST, state, batch, cfg, run_c, cuda, sync,
+                             label=f"phase3h_{arch}")
+        counts.read(f"{arch} profiled step", per_step)
+
+        # -- K1 on one step's real gradients ------------------------------
+        grads, _ = ST.grads_and_metrics(state.params, batch, cfg, run_c)
+        counts.zero()
+        worst, n_cmp, cross = hold_k1(torch, R, TW, CMP, pytree, grads,
+                                      state.efb, state.step, levels, device,
+                                      where)
+        del grads
+        counts.read(f"{arch} comparison with the plain version", per_step,
+                    count=False)
+        check(n_cmp == per_step,
+              f"{where}: {n_cmp} K1 calls compared, expected {per_step}")
+        check(worst == 0.0, f"{where}: compression's K1 differs from its "
+                            f"plain version by {worst}")
+        check(cross <= 0.0, f"{where}: g_hat on cuda vs torch exceeds "
+                            f"CROSS_TOL by {cross}")
+        print(f"compression on one step's gradients: {n_cmp} K1 launches "
+              f"vs the plain version, max |diff| {worst} (the largest tile "
+              f"{max(tiles)} included); g_hat cuda vs torch within "
+              f"CROSS_TOL (worst margin {cross:.3e})")
+
+        # -- decode against forward ---------------------------------------
+        # held in float32 compute: at full width in bfloat16 cuBLAS picks
+        # other kernels for the decode's one-token shapes than for the
+        # forward's, and their bfloat16 outputs round apart; the
+        # configured compute dtype's difference is printed beside it
+        tol = FAMILY_DECODE_TOL[cfg.family]
+        errs = {dt: decode_vs_forward(torch, LMm, ST, state.params, batch,
+                                      dataclasses.replace(cfg, dtype=dt), 16)
+                for dt in ("float32", cfg.dtype)}
+        err = errs["float32"]
+        check(err < tol, f"{where}: decode vs forward {err} (bound {tol})")
+        print(("whisper_prefill + 4 decode steps vs whisper_forward" if encdec
+               else "prefill of 16 tokens + 1 decode step vs forward")
+              + f": max |log-softmax diff| {err:.3e} in float32 compute "
+              f"(bound {tol}); {errs[cfg.dtype]:.3e} in {cfg.dtype}")
+        no_fallbacks(where)
+        del state, batch
+        if cuda:
+            torch.cuda.empty_cache()
+
+        compressed = rows[1:2]                # after the first step
+        summary[arch] = {
+            "params": n_params, "layers": cfg.n_layers, "seq": seq,
+            "tokens_per_step": tokens, "k1_per_step": per_step,
+            "largest_tile": list(max(tiles)),
+            "compressed_step_ms": compressed[0].get("train.step", 0.0),
+            "grads_ms": compressed[0].get("train.grads", 0.0),
+            "compress_ms": compressed[0].get("train.compress", 0.0),
+            "dwt_ms": sum(compressed[0].get(k, 0.0) for k in DWT_SPANS),
+            "adamw_ms": compressed[0].get("train.adamw", 0.0),
+            "compressed_wall_ms": compressed[0]["wall_ms"],
+            "plain_step_ms": rows[2].get("train.step", 0.0),
+            "plain_wall_ms": rows[2]["wall_ms"],
+            "first_step_wall_ms": rows[0]["wall_ms"],
+            "tokens_per_s": tokens / compressed[0]["wall_ms"] * 1e3,
+            "peak_bytes": peak, "losses": [r["loss"] for r in rows],
+            "aux": [r["aux"] for r in rows], "decode_err": errs,
+            "k1_max_abs_diff": worst, "seconds": time.perf_counter() - t_arch}
+        print(f"{arch} took {summary[arch]['seconds']:.1f} s", flush=True)
+    print(json.dumps({"phase3h": summary}))
+    print(f"phase 3h launches (driven paths): {counts.launched}")
+    print(f"phase 3h took {time.perf_counter() - t_phase:.1f} s")
+    return counts.launched
 
 
 def _pyramid_bytes(PP, pw, h, w):
@@ -2672,6 +2983,9 @@ def main(argv=None):
     for name, n in phase_lm(torch, R, TW, PW, device, cpu).items():
         launched[name] += n
     no_fallbacks("phase 3g")
+    for name, n in phase_families(torch, R, TW, PW, device, cpu).items():
+        launched[name] += n
+    no_fallbacks("phase 3h")
     entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
     no_fallbacks("phase 4")
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -91,6 +91,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
     return torch.cat([yr, xp], dim=-1) if xp.shape[-1] else yr
 
 
+def sinusoid_positions(length: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings ``(length, d)``, float32 (the
+    frequencies spread over ``half - 1``, as the reference's)."""
+    half = d // 2
+    log = torch.log(torch.tensor(10_000.0, dtype=torch.float32,
+                                 device=device))
+    freq = torch.exp(-log * torch.arange(half, device=device) / (half - 1))
+    args = torch.arange(length, device=device)[:, None] * freq[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -113,13 +124,17 @@ def init_mlp(gen, cfg: ModelConfig, n: int, device) -> Params:
     }
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, each op rounded to ``x``'s dtype: that is
+    how the reference's XLA computes ``jax.nn.sigmoid`` in bfloat16
+    (equal bit for bit on the CPU), where ``torch.sigmoid`` and
+    ``F.silu`` round once and differ in a third of bfloat16 values."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each
-    op rounded to ``x``'s dtype: that is how the reference's XLA computes
-    ``jax.nn.silu`` in bfloat16 (equal bit for bit on the CPU), where
-    ``F.silu`` and ``torch.sigmoid`` round once and differ in a third of
-    bfloat16 values."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """``x * sigmoid(x)``, rounded as :func:`sigmoid` says."""
+    return x * sigmoid(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -61,21 +61,26 @@ def apply(grads, state: AdamWState, params, run: RunConfig,
 
     gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
-    grads = pytree.tree_map(lambda g: g.to(F32) * scale, grads)
 
     b1, b2, eps = run.beta1, run.beta2, run.eps
-    mu = pytree.tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-    nu = pytree.tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g),
-                         state.nu, grads)
     c = count.to(F32)
     mu_hat_scale = 1.0 / (1 - torch.pow(torch.tensor(b1, dtype=F32), c))
     nu_hat_scale = 1.0 / (1 - torch.pow(torch.tensor(b2, dtype=F32), c))
 
-    def upd(p, m, v):
+    def one(g, m, v, p):
+        # leaf by leaf: one leaf's clipped gradient and temporaries live
+        # at a time, not a clipped copy of the whole tree
+        g = g.to(F32) * scale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
         step_ = m * mu_hat_scale / (torch.sqrt(v * nu_hat_scale) + eps)
         step_ = step_ + run.weight_decay * p.to(F32)
-        return (p.to(F32) - lr * step_).to(p.dtype)
+        return (p.to(F32) - lr * step_).to(p.dtype), m, v
 
-    new_params = pytree.tree_map(upd, params, mu, nu)
+    outs = [one(*xs) for xs in zip(*(pytree.leaves(t) for t in (
+        grads, state.mu, state.nu, params)))]
+    new_params, mu, nu = (pytree.unflatten(tree, [o[i] for o in outs])
+                          for i, tree in enumerate((params, state.mu,
+                                                    state.nu)))
     metrics = {"lr": lr, "grad_norm": gnorm}
     return new_params, AdamWState(count, mu, nu), metrics

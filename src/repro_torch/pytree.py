@@ -43,18 +43,23 @@ def _rebuild(x, values):
     return None
 
 
+# The walks below are module functions, not closures: a recursive closure
+# refers to itself through its cell, and that cycle would keep the list of
+# leaves it appends to (whole parameter trees) alive until the cyclic
+# collector runs, long after the caller dropped them.
+
+def _walk(x, path, out) -> None:
+    kids = _children(x)
+    if kids is None:
+        out.append((path, x))
+        return
+    for entry, child in kids:
+        _walk(child, path + (entry,), out)
+
+
 def leaves_with_path(tree) -> List[Tuple[Path, Any]]:
     out: List[Tuple[Path, Any]] = []
-
-    def walk(x, path):
-        kids = _children(x)
-        if kids is None:
-            out.append((path, x))
-            return
-        for entry, child in kids:
-            walk(child, path + (entry,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 
@@ -76,19 +81,19 @@ def unflatten(tree, values) -> Any:
     """``tree``'s structure with its leaves replaced, in order, by
     ``values``."""
     it = iter(values)
-
-    def build(x):
-        kids = _children(x)
-        if kids is None:
-            return next(it)
-        if x is None:
-            return None
-        return _rebuild(x, [build(c) for _, c in kids])
-
-    out = build(tree)
+    out = _build(tree, it)
     if next(it, _END) is not _END:
         raise ValueError("more values than leaves")
     return out
+
+
+def _build(x, it):
+    kids = _children(x)
+    if kids is None:
+        return next(it)
+    if x is None:
+        return None
+    return _rebuild(x, [_build(c, it) for _, c in kids])
 
 
 _END = object()

@@ -1,5 +1,5 @@
-"""Train / prefill / decode steps for the dense and VLM families (the
-port's copy of the single-device parts of ``repro.runtime.steps``).
+"""Train / prefill / decode steps for every model family (the port's
+copy of the single-device parts of ``repro.runtime.steps``).
 
 ``train_step``: loss -> grads (autograd, ``grad_accum`` microbatches) ->
 optional DWT compression with error feedback -> AdamW.  Cross-entropy
@@ -84,11 +84,17 @@ def chunked_ce(embed_params, hidden: torch.Tensor, labels: torch.Tensor,
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             run: RunConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE of the dense and VLM families."""
-    hidden, aux = lm.forward_hidden(params, batch["tokens"], cfg,
-                                    embeds=batch.get("patch_embeds"),
-                                    remat=(run.remat != "none"))
-    tokens = batch["tokens"]
+    """Next-token CE (+ the MoE aux loss) for every family."""
+    remat = run.remat != "none"
+    if cfg.family == "encdec":
+        hidden, aux = lm.whisper_hidden(params, batch["enc_embeds"],
+                                        batch["dec_tokens"], cfg, remat=remat)
+        tokens = batch["dec_tokens"]
+    else:
+        hidden, aux = lm.forward_hidden(params, batch["tokens"], cfg,
+                                        embeds=batch.get("patch_embeds"),
+                                        remat=remat)
+        tokens = batch["tokens"]
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                        dim=1).long()
     mask = torch.cat(
@@ -172,7 +178,13 @@ def train_step(state: TrainState, batch, cfg: ModelConfig, run: RunConfig
 
 @torch.no_grad()
 def prefill_step(params, batch, cfg: ModelConfig, max_len: int):
-    """Full-context prefill -> (last logits, populated decode cache)."""
+    """Full-context prefill -> (last logits, populated decode cache).
+    Whisper encodes and computes the cross K/V; its logits are zeros."""
+    if cfg.family == "encdec":
+        enc = batch["enc_embeds"]
+        cache = lm.whisper_prefill(params, enc, cfg, enc.shape[0])
+        return torch.zeros((enc.shape[0], C.pad_vocab(cfg.vocab_size)),
+                           dtype=torch.float32, device=enc.device), cache
     return lm.prefill(params, batch["tokens"], cfg, max_len,
                       embeds=batch.get("patch_embeds"))
 
@@ -180,4 +192,6 @@ def prefill_step(params, batch, cfg: ModelConfig, max_len: int):
 @torch.no_grad()
 def decode_step(params, cache, tokens, cfg: ModelConfig):
     """One new token against the cache."""
+    if cfg.family == "encdec":
+        return lm.whisper_decode_step(params, cache, tokens, cfg)
     return lm.decode_step(params, cache, tokens, cfg)

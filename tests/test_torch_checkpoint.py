@@ -15,14 +15,16 @@ import pytest
 import torch
 
 from repro.checkpoint.checkpointer import Checkpointer as RCheckpointer
+from repro.configs import registry as RR
 from repro.configs.base import ShapeConfig as RShape
 from repro.configs.qwen2_0_5b import FULL as R_QWEN, RUN as R_RUN
 from repro.data import pipeline as RP
 from repro.runtime import steps as RS
 
-from repro_torch import pytree
+from repro_torch import convert, pytree
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs import registry as PR
+from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.configs.qwen2_0_5b import FULL as P_QWEN
 from repro_torch.runtime import steps as PS
 
@@ -213,3 +215,75 @@ def test_reference_checkpoint_trains_on_in_the_port(tmp_path):
                     pytree.leaves(pstate.params)):
         assert float(np.abs(np.asarray(a) - b.detach().numpy()).max()) \
             <= rrun.lr
+
+
+@pytest.mark.parametrize("arch,marker", [("zamba2-2.7b", "['shared_attn']"),
+                                         ("whisper-medium", "['dec_blocks']")])
+def test_reference_train_state_of_other_trees_restores(tmp_path, arch,
+                                                       marker):
+    """A compressed run's state of zamba2 (its unstacked ``shared_attn``)
+    and of whisper (``enc_blocks``/``dec_blocks``) as the reference's
+    ``TrainState`` (values drawn by the port: the reference's init
+    compiles op by op), written by the reference's checkpointer, restores
+    in the port leaf for leaf into a template the port made, equals what
+    ``convert.train_state_from_numpy`` carries across, and the port
+    writes the same manifest back."""
+    from repro.optim import adamw as RA
+    _, rrun = RR.get_config(arch, smoke=True)
+    pc, _ = PR.get_config(arch, smoke=True)
+    rrun = dataclasses.replace(rrun, grad_compression="dwt:2")
+    prun = RunConfig(**dataclasses.asdict(rrun))
+    drawn = PS.init_train_state(torch.Generator().manual_seed(2), pc, prun,
+                                device="cpu")
+    arrays = lambda tree: jax.tree_util.tree_map(
+        jnp.asarray, pytree.tree_map(lambda t: t.detach().numpy(), tree))
+    state = RS.TrainState(
+        params=arrays(drawn.params),
+        opt=RA.AdamWState(count=jnp.asarray(3, jnp.int32),
+                          mu=arrays(drawn.opt.mu), nu=arrays(drawn.opt.nu)),
+        efb=jax.tree_util.tree_map(lambda a: a + 0.25, arrays(drawn.efb)),
+        step=jnp.asarray(5, jnp.int32))
+    RCheckpointer(str(tmp_path / "ref")).save(5, state)
+    template = PS.init_train_state(torch.Generator().manual_seed(0), pc,
+                                   prun, device="cpu")
+    restored, step = Checkpointer(str(tmp_path / "ref")).restore(template)
+    carried = convert.train_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, state), pc, device="cpu")
+    assert step == 5 and int(restored.step) == 5 == int(carried.step)
+    for want, have, conv in zip(jax.tree_util.tree_leaves(state),
+                                pytree.leaves(restored),
+                                pytree.leaves(carried)):
+        assert np.array_equal(np.asarray(want), have.detach().numpy())
+        assert torch.equal(have.detach(), conv.detach())
+    Checkpointer(str(tmp_path / "port")).save(5, restored)
+    ref_m, port_m = (json.loads((tmp_path / d / "step_000000005" /
+                                 "MANIFEST.json").read_text())
+                     for d in ("ref", "port"))
+    assert ref_m == port_m
+    assert any(p.startswith(".params" + marker) for p in ref_m["paths"])
+
+
+def test_moe_restart_replays_its_loss(tmp_path):
+    """``train_loop.train`` of mixtral's SMOKE (compressed, 3 steps,
+    checkpoints every step); a run restarted from the checkpoint saved
+    after its second step takes the third with the uninterrupted run's
+    loss, bit for bit."""
+    import os
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.runtime import train_loop as PT
+    pc, prun = PR.get_config("mixtral-8x7b", smoke=True)
+    run = dataclasses.replace(prun, grad_compression="dwt:2",
+                              checkpoint_every=1, keep_checkpoints=5,
+                              checkpoint_dir=str(tmp_path / "a"))
+    shape = ShapeConfig("s", "train", 16, 4)
+    pipe = make_pipeline(pc, seed=0)
+    first = PT.train(pc, run, pipe, shape, 3, log_every=0, device="cpu")
+    (tmp_path / "b").mkdir()
+    os.symlink(tmp_path / "a" / "step_000000001",
+               tmp_path / "b" / "step_000000001")
+    again = PT.train(pc, dataclasses.replace(
+        run, checkpoint_dir=str(tmp_path / "b")), pipe, shape, 3,
+        log_every=0, device="cpu")
+    assert again.restored_from == 1 and len(again.losses) == 1
+    assert again.losses == first.losses[2:]
+    assert float(first.state.params["blocks"]["moe"]["gate"].abs().max()) > 0

@@ -139,6 +139,51 @@ def test_qwen2_tiles_plan_at_full_width():
                 assert win.tiles((1,) + spec.plane_shape) < 2 ** 31
 
 
+def _chip_families():
+    """``chip_smoke.FAMILIES``: the archs and depth cuts phase 3h trains
+    on the card."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_families",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FAMILIES
+
+
+@pytest.mark.parametrize("fam", _chip_families(), ids=lambda f: f["arch"])
+def test_family_tiles_fit_the_kernel_index_math(fam):
+    """Every tile of every tree phase 3h compresses on the card (each arch
+    at full width, depth cut as the script cuts it) plans 4 K1 launches
+    each way at 2 levels, with the K1 tile count under the wrapper's int32
+    guard and every plane's elements under 2^31; mixtral's expert leaves
+    are the tallest tiles K1 is given, (1835008, 256)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    cfg, _ = get_config(fam["arch"])
+    if fam["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=fam["layers"])
+    params = lm.init_params(None, cfg, "meta")  # shapes only
+    tiles = sorted({PC.tile_shape(p.numel(), 2)
+                    for p in pytree.leaves(params)})
+    for shape in tiles:
+        plan = engine.get_plan(scheme=PC.SCHEME, levels=2, shape=shape,
+                               device=CPU)
+        assert plan.launches == 4
+        for spec in plan.level_specs:
+            hp, wp = spec.plane_shape
+            assert hp * wp < 2 ** 31
+            for win in spec.fwd_windows + spec.inv_windows:
+                assert win.tiles((1, hp, wp)) < 2 ** 31
+    if fam["arch"] == "mixtral-8x7b":
+        assert max(tiles) == (1835008, 256)
+        assert dict(pytree.leaves_with_path(params))[
+            (("key", "blocks"), ("key", "moe"), ("key", "gate"))
+        ].shape == (1, 8, 4096, 14336)
+
+
 # ---------------------------------------------------------------------------
 # The reference's tests (tests/test_compression.py), for the port
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 neither JAX nor the reference package nor ``ml_dtypes`` (which ships
 with JAX only), and importing the port — or driving its CPU paths, the
 profiler, a CPU server and a compressed train step included — builds
-nothing (each CUDA source is compiled at its kernels' first launch)."""
+nothing (each CUDA source is compiled at its kernels' first launch).
+The import and the source scan cover every module of the port, the MoE,
+RWKV6 and Mamba2 modules among them."""
 import os
 import re
 import subprocess

@@ -42,8 +42,6 @@ BF16_LOGSOFTMAX = 2e-2      # prefill/decode vs forward, one package
 BF16_VS_REFERENCE = 1.25    # x the reference's own bf16-vs-fp32 error
 NARROW = dict(n_layers=2, d_model=112, d_ff=192, vocab_size=1000)
 MODELS = ("qwen2-narrow", "phi4-mini-3.8b", "granite-34b", "pixtral-12b")
-NOT_PORTED = ("whisper-medium", "zamba2-2.7b", "rwkv6-3b", "mixtral-8x7b",
-              "dbrx-132b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -132,22 +130,45 @@ def test_cells_and_applicability_equal_the_reference():
 # Parameters
 # ---------------------------------------------------------------------------
 
+def _layouts(rc, pc):
+    """(path, shape) of every leaf: the reference's eval_shape and the
+    port's meta-device init (shapes only), and both dtype lists."""
+    ref = jax.eval_shape(lambda: RL.init_params(jax.random.PRNGKey(0), rc))
+    ref_flat = [(jax.tree_util.keystr(p), tuple(a.shape))
+                for p, a in jax.tree_util.tree_flatten_with_path(ref)[0]]
+    got = PL.init_params(None, pc, "meta")
+    got_flat = [(pytree.keystr(p), tuple(a.shape))
+                for p, a in pytree.leaves_with_path(got)]
+    dtypes = ([str(a.dtype) for a in jax.tree_util.tree_leaves(ref)],
+              [str(a.dtype).replace("torch.", "")
+               for a in pytree.leaves(got)])
+    return ref_flat, got_flat, dtypes
+
+
 def test_full_qwen2_layout_is_the_reference_layout():
     """Stacked leaves at qwen2-0.5b's full width, by shape and by path
     (the port's meta-device init against the reference's eval_shape)."""
     from repro_torch.configs.qwen2_0_5b import FULL as P_QWEN
-    ref = jax.eval_shape(lambda: RL.init_params(jax.random.PRNGKey(0),
-                                                R_QWEN))
-    ref_flat = [(jax.tree_util.keystr(p), tuple(a.shape))
-                for p, a in jax.tree_util.tree_flatten_with_path(ref)[0]]
-    got = PL.init_params(None, P_QWEN, "meta")  # shapes only
-    got_flat = [(pytree.keystr(p), tuple(a.shape))
-                for p, a in pytree.leaves_with_path(got)]
+    ref_flat, got_flat, _ = _layouts(R_QWEN, P_QWEN)
     assert got_flat == ref_flat
     assert dict(got_flat)["['blocks']['attn']['wq']"] == (24, 896, 16, 64)
     assert dict(got_flat)["['embed']['tok']"] == (153600, 896)
     n = sum(int(np.prod(s)) for _, s in got_flat)
     assert 495e6 < n < 505e6
+
+
+@pytest.mark.parametrize("arch", [a for a in RR.ARCH_IDS
+                                  if a != "qwen2-0.5b"])
+def test_full_layout_is_the_reference_layout(arch):
+    """Every other arch's leaves at full width, by path, shape and dtype:
+    the layout gradient compression tiles and checkpoints name (whisper's
+    ``enc_blocks``/``dec_blocks``, zamba2's unstacked ``shared_attn``)."""
+    ref_flat, got_flat, (ref_dt, got_dt) = _layouts(
+        RR.get_config(arch)[0], PR.get_config(arch)[0])
+    assert got_flat == ref_flat and got_dt == ref_dt
+    if arch == "mixtral-8x7b":
+        assert dict(got_flat)["['blocks']['moe']['gate']"] \
+            == (32, 8, 4096, 14336)
 
 
 def test_lm_module_registers_the_tree_and_zeroes_padded_heads():
@@ -192,13 +213,62 @@ def test_entry_points_default_to_the_card(monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_families_raise(arch):
-    _, pc = _configs(arch)
-    with pytest.raises(NotImplementedError, match="11b"):
-        PL.LM(pc, generator=torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="11b"):
-        PL.forward_hidden({}, torch.zeros((1, 4), dtype=torch.int32), pc)
+def test_an_unknown_family_raises_value_error():
+    """Every family of the reference is ported; a family the reference
+    does not know raises ValueError naming it, as the reference's
+    ``lm.py`` does."""
+    _, pc = _configs("qwen2-narrow")
+    bad = dataclasses.replace(pc, family="retnet")
+    with pytest.raises(ValueError, match="retnet"):
+        PL.LM(bad, generator=torch.Generator(), device="cpu")
+    with pytest.raises(ValueError, match="retnet"):
+        PL.init_decode_cache(bad, 1, 8, device="cpu")
+    params = PL.LM(pc, generator=torch.Generator().manual_seed(0),
+                   device="cpu").tree()
+    with pytest.raises(ValueError, match="retnet"):
+        PL.forward_hidden(params, torch.zeros((1, 4), dtype=torch.int32),
+                          bad)
+
+
+@pytest.mark.parametrize("arch", RR.ARCH_IDS)
+def test_every_arch_trains_prefills_and_decodes(arch):
+    """Every arch (SMOKE) builds an LM and runs forward, prefill and a
+    decode step (whisper: its prefill and decode step) and a train step
+    with ``grad_compression="dwt:2"`` and without, in the port alone:
+    finite losses, the MoE aux loss above 0, every parameter moved."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_pipeline
+    pc, prun = PR.get_config(arch, smoke=True)
+    prun = dataclasses.replace(prun, grad_accum=2, grad_compression="dwt:2")
+    state = PS.init_train_state(torch.Generator().manual_seed(0), pc, prun,
+                                device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in make_pipeline(pc).batch_at(
+        0, ShapeConfig("s", "train", 32, 4)).items()}
+    before = pytree.leaves(state.params)
+    for comp in ("dwt:2", "none"):
+        run = dataclasses.replace(prun, grad_compression=comp)
+        state, m = PS.train_step(state, batch, pc, run)
+        assert bool(torch.isfinite(m["loss"]))
+        assert (float(m["aux"]) > 0) == (pc.family == "moe")
+    assert int(state.step) == 2
+    assert all(bool((a != b).any())
+               for a, b in zip(before, pytree.leaves(state.params)))
+    vp = PCm.pad_vocab(pc.vocab_size)
+    with torch.no_grad():
+        if pc.family == "encdec":
+            full, _ = PL.whisper_forward(state.params, batch["enc_embeds"],
+                                         batch["dec_tokens"], pc)
+            lg, cache = PS.prefill_step(state.params, batch, pc, 32)
+            tok = batch["dec_tokens"][:, :1]
+        else:
+            full, _ = PL.forward(state.params, batch["tokens"], pc)
+            lg, cache = PS.prefill_step(
+                state.params, {"tokens": batch["tokens"][:, :16]}, pc, 32)
+            tok = batch["tokens"][:, 16:17]
+        lg, cache = PS.decode_step(state.params, cache, tok, pc)
+    assert tuple(lg.shape) == (4, vp) and full.shape[-1] == vp
+    assert bool(torch.isfinite(lg[:, :pc.vocab_size]).all())
+    assert int(cache["pos"]) == (1 if pc.family == "encdec" else 17)
 
 
 # ---------------------------------------------------------------------------

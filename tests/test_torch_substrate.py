@@ -256,3 +256,66 @@ def test_train_resumes_with_bit_equal_losses(tmp_path):
     assert again.losses == full.losses[2:]
     for x, y in zip(pytree.leaves(full.state), pytree.leaves(again.state)):
         assert torch.equal(x.detach(), y.detach())
+
+
+def test_tree_walks_hold_no_leaf_after_they_return():
+    """``leaves`` and ``unflatten`` leave no reference cycle behind: with
+    the cyclic collector off, a leaf is freed as soon as the caller drops
+    it (a recursive closure once kept every walked parameter tree alive
+    until the collector ran, tens of GiB on the card at mixtral's width)."""
+    import gc
+    import weakref
+    from repro_torch import pytree
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        t = torch.zeros(3)
+        ref = weakref.ref(t)
+        walked = pytree.leaves({"a": t, "b": [t, (t, None)]})
+        rebuilt = pytree.unflatten({"x": [0, {"y": 0}]}, [t, t])
+        assert len(walked) == 3 and rebuilt["x"][1]["y"] is t
+        del t, walked, rebuilt
+        assert ref() is None
+    finally:
+        if was:
+            gc.enable()
+
+
+_FIRST_STEP = """
+import dataclasses, gc
+import torch
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.data.pipeline import make_pipeline
+from repro_torch.runtime import steps
+cfg, run = get_config("qwen2-0.5b", smoke=True)
+run = dataclasses.replace(run, grad_compression="dwt:2", grad_accum=1)
+state = steps.init_train_state(torch.Generator().manual_seed(0), cfg, run,
+                               device="cpu")
+batch = {k: torch.from_numpy(v) for k, v in make_pipeline(cfg).batch_at(
+    0, ShapeConfig("s", "train", 32, 4)).items()}
+gc.collect()
+gc.disable()
+state, _ = steps.train_step(state, batch, cfg, run)
+gc.set_debug(gc.DEBUG_SAVEALL)
+gc.collect()
+held = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+print("TENSORS_IN_CYCLES", len(held))
+"""
+
+
+def test_first_train_step_leaves_no_tensor_in_a_cycle():
+    """The first train step of a fresh process (where
+    ``torch.utils.checkpoint`` first imports ``torch._dynamo``) leaves no
+    tensor in cyclic garbage: every gradient and old state tree is freed
+    when the caller drops it, not when the collector runs."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", _FIRST_STEP],
+                         env=dict(os.environ, PYTHONPATH=str(src)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "TENSORS_IN_CYCLES 0" in out.stdout, out.stdout
