@@ -159,6 +159,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
              forward within the reference's 2e-2 (moe, encdec) / 8e-2
              (ssm, hybrid) in float32 compute, the bfloat16 difference
              printed beside it;
+3i. multi-device — qwen2-0.5b at 3g's cut over a one-rank NCCL process
+             group (``file://`` rendezvous under ``build/``) and the
+             ``(pod=1, data=1, model=1)`` mesh of
+             ``launch.mesh.make_debug_mesh``: 2 plain ``train_step`` calls,
+             2 sharded steps (the state and batch DTensors placed by the
+             rules, on the single-pod (data, model) sub-mesh) and 2
+             podwise steps (``make_train_step_podwise``) from one seeded
+             state and the same 2 batches; losses, every parameter and
+             every error-feedback leaf bit for bit against the plain
+             steps; K1 launches per step = the plans' sum (112), one
+             podwise step's against the plain version bit for bit; the
+             pod all-reduce's bytes = the compressed slices' sum, beside
+             the float32 gradient bytes; the ``train.*`` spans of the
+             plain and the podwise step (``train.pod_reduce`` included);
+             then the dry run (``repro_torch.launch.dryrun`` over a fake
+             256/512-rank group, one process per cell, all at once):
+             qwen2-0.5b ``train_4k`` sharded on 16x16 and podwise on
+             2x16x16, argument bytes alone for its sharded step on
+             2x16x16 and for dbrx-132b (``DRYRUN_CELLS``); each cell's
+             per-device bytes, FLOPs, wire bytes and dominant term on the
+             H100's constants (gloo, SMOKE sizes and the dry run's
+             ``--smoke`` under --cpu-rehearsal);
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
@@ -2665,6 +2687,287 @@ def phase_families(torch, R, TW, PW, device, cpu):
     return counts.launched
 
 
+# phase 3i: the multi-device layer over a one-rank mesh (the card is one;
+# NCCL refuses two ranks on one device), and the dry run in a process of
+# its own (its fake process group cannot share a process with NCCL's)
+PODS = dict(arch="qwen2-0.5b", seq=4096, batch=4, steps=2)
+PODS_REHEARSAL = dict(PODS, seq=32)
+POD_SPANS = ("train.step", "train.grads", "train.compress",
+             "train.pod_reduce", "train.adamw")
+# the dry run's cells, one process each, all at once: (arch, mesh, extra
+# flags), shape train_4k.  On meta DTensors over a 256- or 512-rank fake
+# group, qwen2's sharded step takes about a minute of host time on the
+# 16x16 mesh and its podwise step as long on 2x16x16, while the sharded
+# step on 2x16x16 did not end in 10 minutes (DTensor's redistribution
+# planner on a 3-D mesh) and dbrx-132b's 16 microbatches of 40 MoE layers
+# would take longer still: those two record their argument bytes alone
+DRYRUN_CELLS = (("qwen2-0.5b", "single", ()),
+                ("qwen2-0.5b", "multi", ("--podwise", "--tag", "_podwise")),
+                ("qwen2-0.5b", "multi", ("--args-only",)),
+                ("dbrx-132b", "multi", ("--args-only",)))
+DRYRUN_REHEARSAL = (("qwen2-0.5b", "single", ("--smoke",)),
+                    ("qwen2-0.5b", "multi", ("--smoke", "--podwise", "--tag",
+                                             "_podwise")))
+DRYRUN_TIMEOUT = 600
+
+
+def _equal_trees(pytree, SH, got, want):
+    """(leaves compared, the leaves that differ as (path, max |diff|))."""
+    bad, n = [], 0
+    for (path, a), b in zip(pytree.leaves_with_path(got),
+                            pytree.leaves(want)):
+        a = SH.to_global(a)
+        n += 1
+        if not (a.dtype == b.dtype and a.shape == b.shape
+                and bool((a == b).all())):
+            bad.append((pytree.keystr(path), max_abs(a.float(), b.float())))
+    return n, bad
+
+
+def _dryrun(cpu):
+    """The dry-run cells, each in a process of its own, all started at
+    once; prints each cell's figures as a JSON line."""
+    import os
+    out_dir = ROOT / "build" / "chip_smoke" / "phase3i" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cells = DRYRUN_REHEARSAL if cpu else DRYRUN_CELLS
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "train_4k", "--mesh", mesh, "--out", str(out_dir),
+         *flags], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env) for arch, mesh, flags in cells]
+    try:
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"dry run: {len(cells)} cells in {len(cells)} processes, "
+          f"{time.perf_counter() - t0:.1f} s of wall time")
+    for (arch, mesh, flags), p, (out, err) in zip(cells, procs, outs):
+        print("\n".join(ln for ln in out.splitlines()
+                        if ln.startswith("[dryrun]")))
+        check(p.returncode == 0, f"phase 3i: dry run {arch} {mesh} "
+                                 f"{' '.join(flags)} exited {p.returncode}:"
+                                 f" {err[-2000:]}")
+        tag = "_podwise" if "--podwise" in flags else ""
+        res = json.loads((out_dir / f"{arch}__train_4k__{mesh}{tag}.json")
+                         .read_text())
+        check(res["status"] == "OK", f"phase 3i: dry-run cell {arch} "
+                                     f"{mesh} {res['status']}")
+        row = {"arch": arch, "mesh": res["mesh"], "flags": " ".join(flags),
+               "argument_bytes": res["memory"]["argument_bytes"],
+               "run_seconds": res["run_seconds"]}
+        if "cost" in res:
+            row.update(peak_device_bytes=res["memory"]["peak_device_bytes"],
+                       flops_per_device=res["cost"]["flops_per_device"],
+                       bytes_major_per_device=res["cost"][
+                           "bytes_major_per_device"],
+                       wire_bytes=res["collectives"]["total_wire_bytes"],
+                       wire_bytes_pod=res["collectives"][
+                           "wire_bytes_pod_crossing"],
+                       roofline=res["roofline"], dominant=res["dominant"],
+                       useful_flops_ratio=res["useful_flops_ratio"])
+        print(json.dumps({"phase3i_dryrun": row}))
+
+
+def phase_multidevice(torch, R, TW, PW, device, cpu):
+    """Phase 3i: the sharded and the podwise train steps of qwen2-0.5b at
+    full width over a one-rank (pod=1, data=1, model=1) mesh on NCCL
+    (gloo and the SMOKE config under --cpu-rehearsal), each held bit for
+    bit against the plain ``train_step`` from one seeded state and
+    batches; K1 through both, one step's launches against the plain
+    version; the pod all-reduce's bytes against the slices' sum; the
+    ``train.*`` spans; then the dry run in a subprocess.  Returns the
+    launches of each kernel it drove."""
+    print("== phase 3i: the multi-device layer (DTensor placements, the "
+          "sharded and podwise steps, the dry run)", flush=True)
+    import dataclasses
+    import math
+    import shutil
+    import torch.distributed as dist
+    from repro_torch import engine as E
+    from repro_torch import pytree
+    from repro_torch import telemetry as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import compression as CMP
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import steps as ST
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sz = PODS_REHEARSAL if cpu else PODS
+    counts = Launches(TW, PW, cpu, "phase 3i")
+    work = ROOT / "build" / "chip_smoke" / "phase3i"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    if cuda:
+        torch.cuda.set_device(device)
+    backend = "gloo" if cpu else "nccl"
+    dist.init_process_group(backend, init_method=f"file://{work / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, multi_pod=True, n_pods=1,
+                               device_type=device.type)
+        print(f"process group {backend}, world 1; mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+              f"{device}")
+        cfg, run = get_config(sz["arch"], smoke=cpu)
+        run_c = dataclasses.replace(run, grad_compression="dwt:2",
+                                    compression_wavelet="cdf97",
+                                    checkpoint_every=0)
+        levels = ST.compression_levels(run_c)
+        shape = ShapeConfig("phase3i", "train", sz["seq"], sz["batch"])
+        pipe = make_pipeline(cfg, seed=0)
+        batches = [{k: torch.from_numpy(v).to(device)
+                    for k, v in pipe.batch_at(i, shape).items()}
+                   for i in range(sz["steps"])]
+        gen = torch.Generator(device=device).manual_seed(0)
+        state0 = ST.init_train_state(gen, cfg, run_c, device=device)
+        per_step, tiles = _compression_launches(
+            E, CMP, pytree, state0.params, levels, device)
+        grad_bytes = sum(p.numel() * 4 for p in pytree.leaves(state0.params))
+        slice_bytes = sum(h * w * 4 // CMP.n_phases(levels)
+                          for h, w in tiles)
+        print(f"{cfg.arch_id}: {len(tiles)} leaves, seq {sz['seq']}, global "
+              f"batch {sz['batch']}, grad_accum {run_c.grad_accum}, "
+              f"{run_c.grad_compression}; K1 launches per step {per_step}")
+
+        def run_steps(step_fn, state, label, place_batch=None):
+            T.set_mode("spans")
+            T.TRACER.clear()
+            losses, spans = [], []
+            try:
+                for b in batches:
+                    if place_batch is not None:
+                        b = place_batch(b)
+                    counts.zero()
+                    state, m = step_fn(state, b)
+                    losses.append(float(m["loss"]))
+                    sync()
+                    counts.read(f"{label} step", per_step)
+                    row = {}
+                    for rec in T.TRACER.records():
+                        row[rec.name] = row.get(rec.name, 0.0) \
+                            + rec.dur_s * 1e3
+                    T.TRACER.clear()
+                    spans.append(row)
+            finally:
+                T.set_mode("counters")
+            return state, losses, spans
+
+        # -- the plain step, the reference ------------------------------
+        plain = lambda s, b: ST.train_step(s, b, cfg, run_c)
+        ref, ref_losses, ref_spans = run_steps(plain, state0, "plain")
+        check(all(math.isfinite(x) for x in ref_losses),
+              f"phase 3i: plain losses {ref_losses}")
+
+        def held(label, state, losses):
+            n, bad = _equal_trees(pytree, SH, state.params, ref.params)
+            ne, bad_e = _equal_trees(pytree, SH, state.efb, ref.efb)
+            check(losses == ref_losses and not bad and not bad_e,
+                  f"phase 3i: the {label} step differs from train_step: "
+                  f"losses {losses} vs {ref_losses}; params {bad[:4]}; "
+                  f"efb {bad_e[:4]}")
+            print(f"{label} step x{len(losses)}: losses {losses} == "
+                  f"train_step's; {n} parameter and {ne} efb leaves bit "
+                  f"for bit")
+
+        # -- the sharded step: a DTensor state placed by the rules, on the
+        # single-pod (data, model) mesh.  On the pod mesh the batch rule
+        # shards dim 0 over pod and data at once ([Shard(0), Shard(0)]),
+        # which the card's torch 2.11 DTensor refuses for the embedding's
+        # index op ("hybrid sharding strategies"); torch 2.13 runs it
+        single = mesh["data", "model"]
+        shd = SH.make_state_shardings(single, state0, cfg, run_c)
+        sharded = SH.distribute_tree(state0, shd)
+        placed = lambda b: SH.distribute_tree(
+            b, SH.make_batch_shardings(single, b))
+        with SH.use_mesh(single):
+            out, losses, _ = run_steps(plain, sharded, "sharded", placed)
+        held("sharded", out, losses)
+        del sharded, out
+        shd = SH.make_state_shardings(mesh, state0, cfg, run_c)
+
+        # -- the podwise step: efb plain and pod-local -------------------
+        podwise_state = ST.TrainState(
+            SH.distribute_tree(state0.params, shd.params),
+            SH.distribute_tree(state0.opt, shd.opt), state0.efb,
+            state0.step)
+        step = ST.make_train_step_podwise(mesh, cfg, run_c)
+        worst, n_cmp = 0.0, 0
+
+        def versus_plain(kernel, win, planes):
+            nonlocal worst, n_cmp
+            out = kernel(win, planes)
+            want = TW.tap_window_ref(win, planes)
+            worst = max([worst] + [max_abs(a, b) for a, b in
+                                   zip(out, want)])
+            n_cmp += 1
+            return out
+
+        def podwise(s, b):
+            # the first step's K1 calls are held against the plain version
+            if n_cmp:
+                return step(s, b)
+            with k1_calls(TW, versus_plain):
+                return step(s, b)
+
+        ST.POD_REDUCE.zero()
+        with SH.use_mesh(mesh):
+            out, losses, pod_spans = run_steps(podwise, podwise_state,
+                                               "podwise")
+        held("podwise", out, losses)
+        del podwise_state, out
+        check(n_cmp == per_step,
+              f"phase 3i: {n_cmp} K1 calls compared, expected {per_step}")
+        check(worst == 0.0, f"phase 3i: K1 in the podwise step differs "
+                            f"from its plain version by {worst}")
+        moved = ST.POD_REDUCE.bytes
+        check(moved == sz["steps"] * slice_bytes
+              and ST.POD_REDUCE.calls == sz["steps"] * len(tiles),
+              f"phase 3i: the pod all-reduce moved {moved} bytes in "
+              f"{ST.POD_REDUCE.calls} calls; the slices are "
+              f"{sz['steps']} x {slice_bytes} bytes in "
+              f"{sz['steps'] * len(tiles)}")
+        print(f"podwise step: K1 launches per step {per_step}, one step's "
+              f"{n_cmp} calls vs the plain version max |diff| {worst}; "
+              f"pod all-reduce {moved // sz['steps']} bytes per step in "
+              f"{ST.POD_REDUCE.calls // sz['steps']} calls == the slices' "
+              f"sum, against {grad_bytes} bytes of float32 gradients "
+              f"(1/{grad_bytes / (moved // sz['steps']):.2f})")
+        no_fallbacks("phase 3i, steps")
+        card = "cpu rehearsal" if cpu else nvidia_smi()
+        for label, rows in (("plain", ref_spans), ("podwise", pod_spans)):
+            last = rows[-1]
+            print(f"{label:8s} step device spans (ms, last step): " +
+                  ", ".join(f"{k} {last.get(k, 0.0):.2f}"
+                            for k in POD_SPANS) + f"  [{card}]")
+        print(json.dumps({"phase3i": {
+            "card": card, "per_step_k1": per_step, "k1_max_abs": worst,
+            "pod_reduce_bytes_per_step": moved // sz["steps"],
+            "grad_bytes": grad_bytes, "plain_spans_ms": ref_spans[-1],
+            "podwise_spans_ms": pod_spans[-1], "losses": ref_losses}}))
+        del ref, state0
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work / "pg", ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- the dry run, in processes of its own ----------------------------
+    _dryrun(cpu)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 3i launches (driven paths): {counts.launched}")
+    print(f"phase 3i took {time.perf_counter() - t_phase:.1f} s")
+    return counts.launched
+
+
 def _pyramid_bytes(PP, pw, h, w):
     """Modelled and unique bytes of one fused-pyramid launch per image."""
     return PP.pyramid_hbm_bytes((h, w), 4, pw.level_blocks,
@@ -2986,6 +3289,9 @@ def main(argv=None):
     for name, n in phase_families(torch, R, TW, PW, device, cpu).items():
         launched[name] += n
     no_fallbacks("phase 3h")
+    for name, n in phase_multidevice(torch, R, TW, PW, device, cpu).items():
+        launched[name] += n
+    no_fallbacks("phase 3i")
     entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
     no_fallbacks("phase 4")
     print(f"total {time.perf_counter() - t_start:.1f} s")

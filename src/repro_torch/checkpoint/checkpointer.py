@@ -158,13 +158,20 @@ class Checkpointer:
 
     # -- restore -------------------------------------------------------------
 
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> Tuple[Any, int]:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Tuple[Any, int]:
         """Restore into the structure of ``template``.
 
         Each leaf comes back as a tensor of the checkpoint's dtype on the
         device of the template's leaf (the host for a non-tensor leaf),
         requiring grad where the template's leaf does.
+
+        ``shardings`` (optional: a tree of
+        :class:`~repro_torch.distributed.sharding.NamedSharding` with the
+        template's structure, a leaf None to skip) places each leaf on
+        the *current* mesh as a DTensor, every rank keeping its own
+        chunk of the saved array — the elastic-restart path: the
+        checkpoint does not care what mesh it was saved from.
         """
         if step is None:
             step = self.latest_step()
@@ -177,17 +184,44 @@ class Checkpointer:
             raise ValueError(
                 f"checkpoint has {manifest['num_leaves']} leaves, template "
                 f"has {len(leaves_t)} — structure mismatch")
+        shard_leaves = ([None] * len(leaves_t) if shardings is None else
+                        _sharding_leaves(shardings, template))
         out = []
-        for i, tl in enumerate(leaves_t):
+        for i, (tl, sh) in enumerate(zip(leaves_t, shard_leaves)):
             t = _from_host(np.load(src / f"leaf_{i:06d}.npy"),
                            manifest["dtypes"][i])
             if tuple(t.shape) != tuple(np.shape(tl)):
                 raise ValueError(
                     f"leaf {i} shape {tuple(t.shape)} != template "
                     f"{tuple(np.shape(tl))}")
-            if isinstance(tl, torch.Tensor):
+            if sh is not None:
+                from repro_torch.distributed import sharding as SH
+                t = SH.distribute(t, sh)
+            elif isinstance(tl, torch.Tensor):
                 t = t.to(tl.device)
-                if tl.requires_grad:
-                    t.requires_grad_(True)
+            if isinstance(tl, torch.Tensor) and tl.requires_grad:
+                t.requires_grad_(True)
             out.append(t)
         return pytree.unflatten(template, out), step
+
+
+def _sharding_leaves(shardings, template):
+    """One sharding (or None) per leaf of ``template``: the shardings
+    tree's leaves, where a ``NamedSharding`` is a leaf."""
+    from repro_torch.distributed.sharding import NamedSharding
+    out = []
+
+    def walk(sh, tl):
+        if sh is None or isinstance(sh, NamedSharding):
+            out.extend([sh] * len(pytree.leaves(tl)))
+            return
+        kids = pytree._children(sh)
+        tkids = pytree._children(tl)
+        if kids is None or tkids is None or len(kids) != len(tkids):
+            raise ValueError("shardings do not match the template's "
+                             "structure")
+        for (_, s), (_, t) in zip(kids, tkids):
+            walk(s, t)
+
+    walk(shardings, template)
+    return out

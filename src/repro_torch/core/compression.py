@@ -18,6 +18,12 @@ launch of the window kernel K1 (:mod:`repro_torch.kernels.tap_window`),
 so a 2-level forward plus inverse is 8 launches per tensor; on a CPU
 tensor the kernel's plain version runs.  No gradient flows through the
 transform, so it runs under ``torch.no_grad``.
+
+A DTensor leaf (the sharded train step's) is compressed whole, as the
+reference compresses the global array: :func:`compress_with_feedback`
+gathers each gradient and error leaf (``full_tensor()``), transforms it,
+and places its outputs as the inputs were placed.  Compressing each
+rank's shard would tile, and so transform, something else.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch import pytree
 from repro_torch.core import transform as T
+from repro_torch.distributed import sharding as SH
 
 WIDTH = 256  # 2-D tile width for flattened gradients
 SCHEME = "ns-polyconv"
@@ -110,17 +117,19 @@ def compress_with_feedback(grads, errors, step=0, levels: int = 2,
     ``reduce_fn`` (e.g. an all-reduce mean over the data-parallel group)
     is applied to the *compressed* slice: that is the collective whose
     bytes shrink by 4^levels.  ``step`` selects the pyramid phase
-    (cycled).
+    (cycled).  DTensor leaves are transformed whole and come back placed
+    as they came (module docstring).
     """
     phase = _phase(step, levels)
 
-    def one(g, e):
+    def one(g_in, e_in):
+        g, e = SH.to_global(g_in), SH.to_global(e_in)
         acc = e + g.to(torch.float32)
         c = compress(acc, phase, levels, wavelet)
         if reduce_fn is not None:
             c = reduce_fn(c)
         g_hat = decompress(c, phase, g.shape, levels, wavelet)
-        return g_hat.to(g.dtype), acc - g_hat
+        return SH.like(g_hat.to(g.dtype), g_in), SH.like(acc - g_hat, e_in)
 
     outs = [one(g, e) for g, e in zip(pytree.leaves(grads),
                                       pytree.leaves(errors))]

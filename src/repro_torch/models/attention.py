@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import common as C
 
 Params = Dict[str, Any]
@@ -51,9 +52,9 @@ def init_attention(gen, cfg: ModelConfig, n: int, device) -> Params:
 
 def _project_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig):
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    q = SH.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = SH.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
+    v = SH.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -65,14 +66,56 @@ def _scores_softmax_value(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     """q: (B, C, H, hd); k/v: (B, S, KV, hd); mask: (C, S) bool."""
     groups = cfg.n_heads_padded // cfg.n_kv_heads
     b, c, h, hd = q.shape
-    qg = q.reshape(b, c, cfg.n_kv_heads, groups, hd)
     # jnp.sqrt(hd).astype(q.dtype): the root in float32, then cast
     scale = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype)
-    scores = torch.einsum("bckgh,bskh->bkgcs", qg, k) / scale
+    split = _heads_split_unevenly(q, cfg.n_kv_heads)
+    if split is not None:
+        return _per_head_local(q, k, v, mask, scale, groups, split)
+    qg = q.reshape(b, c, cfg.n_kv_heads, groups, hd)
+    scores = SH.einsum("bckgh,bskh->bkgcs", qg, k) / scale
     scores = torch.where(mask[None, None, None], scores.float(), -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgcs,bskh->bckgh", probs, v)
+    out = SH.einsum("bkgcs,bskh->bckgh", probs, v)
     return out.reshape(b, c, cfg.n_heads_padded, hd)
+
+
+def _heads_split_unevenly(q, kv: int):
+    """The mesh dim of more than one rank that shards DTensor ``q``'s
+    head dim where it does not divide the ``kv`` groups, or None."""
+    if not SH.is_dtensor(q):
+        return None
+    for i, pl in enumerate(q.placements):
+        n = q.device_mesh.shape[i]
+        if pl.is_shard(2) and n > 1 and kv % n:
+            return i
+    return None
+
+
+def _per_head_local(q, k, v, mask, scale, groups: int, mesh_dim: int):
+    """Grouped attention on a rank's own q heads, each against its kv
+    head, where a mesh dim shards the heads across the kv groups (qwen2's
+    16 heads in 2 groups on a 16-way ``model`` axis; DTensor cannot
+    carry one mesh dim's sharding onto the (groups, heads per group)
+    split).  k and v are whole on that mesh dim; their gradients come
+    back partial over it."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = q.device_mesh
+    whole = [Replicate() if i == mesh_dim else pl
+             for i, pl in enumerate(q.placements)]
+    grad = [Partial() if i == mesh_dim else pl for i, pl in enumerate(whole)]
+    k, v = (t.redistribute(mesh, whole) if tuple(t.placements) != tuple(
+        whole) else t for t in (k, v))
+    ql = q.to_local()
+    per = -(-q.shape[2] // mesh.shape[mesh_dim])
+    first = mesh.get_local_rank(mesh_dim) * per
+    kv_of = (first + torch.arange(ql.shape[2], device=ql.device)) // groups
+    kl = k.to_local(grad_placements=grad)[:, :, kv_of]
+    vl = v.to_local(grad_placements=grad)[:, :, kv_of]
+    scores = torch.einsum("bchd,bshd->bhcs", ql, kl) / scale
+    scores = torch.where(mask[None, None], scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhcs,bshd->bchd", probs, vl)
+    return SH.from_local(out, mesh, q.placements, tuple(q.shape))
 
 
 def _causal_mask(qpos, key_pos, cfg: ModelConfig, causal: bool):
@@ -119,7 +162,7 @@ def attend(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                        use_reentrant=False)
             for i in range(n_chunks)]
     out = torch.cat(outs, dim=1)[:, :s]
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return SH.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +223,7 @@ def decode_attend(params: Params, cache: Params, x: torch.Tensor, pos: int,
     mask = valid[None, :]  # (1, length)
 
     out = _scores_softmax_value(q, ck.to(q.dtype), cv.to(q.dtype), mask, cfg)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    y = SH.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, {"k": ck, "v": cv}
 
 
@@ -198,8 +241,9 @@ def prefill_attend(params: Params, cache: Params, x: torch.Tensor,
     length = cache["k"].shape[1]
     k_keep = k[:, -length:].to(cache["k"].dtype)
     v_keep = v[:, -length:].to(cache["v"].dtype)
-    ck = cache["k"].clone()
-    cv = cache["v"].clone()
+    # a sharded prefill writes a cache placed as its keys are
+    ck = SH.like(cache["k"].clone(), k_keep)
+    cv = SH.like(cache["v"].clone(), v_keep)
     ck[:, :k_keep.shape[1]] = k_keep
     cv[:, :v_keep.shape[1]] = v_keep
     return y, {"k": ck, "v": cv}

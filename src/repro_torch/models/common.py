@@ -15,7 +15,9 @@ from typing import Any, Dict, Sequence
 
 import torch
 
+from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
 
 Params = Dict[str, Any]
 
@@ -39,6 +41,56 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * fan_in ** -0.5).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding
+# ---------------------------------------------------------------------------
+
+# Korthikanti-style sequence parallelism: between blocks, activations are
+# additionally sharded over 'model' on the sequence dim.  Set from
+# RunConfig.seq_parallel by the dry run.
+SEQ_PARALLEL = False
+
+
+def shard_batch(x: torch.Tensor) -> torch.Tensor:
+    """Pin dim 0 (batch) to the (pod, data) mesh axes, and under
+    ``SEQ_PARALLEL`` dim 1 to ``model``: the reference's sharding
+    constraint, as a DTensor redistribution (replicated over every other
+    mesh dim).  The mesh is ``x``'s own: a sub-mesh without ``pod`` (the
+    podwise step's) shards over ``data`` alone, as the reference skips
+    its manual ``pod`` axis.  ``x`` comes back as it is outside
+    :func:`repro_torch.distributed.sharding.use_mesh`, for a plain
+    tensor, or when the batch divides neither (pod, data) nor data."""
+    if SH.current_mesh() is None or not SH.is_dtensor(x) or x.ndim < 2:
+        return x
+    mesh = x.device_mesh
+    names = SH.axis_names(mesh)
+    size = dict(zip(names, mesh.shape))
+    axes = [a for a in ("pod", "data") if a in size]
+    if not axes:
+        return x
+    n = 1
+    for a in axes:
+        n *= size[a]
+    if x.shape[0] % n != 0:
+        if "data" in size and x.shape[0] % size["data"] == 0:
+            axes = ["data"]
+        else:
+            return x
+    rest = [None] * (x.ndim - 1)
+    if SEQ_PARALLEL and x.ndim >= 3 and "model" in size \
+            and x.shape[1] % size["model"] == 0:
+        rest[0] = "model"
+    want = SH.placements(SH.P(tuple(axes), *rest), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def shard_batch_tree(tree):
+    return pytree.tree_map(
+        lambda a: shard_batch(a) if isinstance(a, torch.Tensor) else a, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +199,11 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
     if cfg.act == "silu":
-        g = x @ params["gate"].to(dt)
-        u = x @ params["up"].to(dt)
-        return (silu(g) * u) @ params["down"].to(dt)
-    h = gelu_tanh(x @ params["up"].to(dt) + params["up_b"].to(dt))
-    return h @ params["down"].to(dt) + params["down_b"].to(dt)
+        g = SH.matmul(x, params["gate"].to(dt))
+        u = SH.matmul(x, params["up"].to(dt))
+        return SH.matmul(silu(g) * u, params["down"].to(dt))
+    h = gelu_tanh(SH.matmul(x, params["up"].to(dt)) + params["up_b"].to(dt))
+    return SH.matmul(h, params["down"].to(dt)) + params["down_b"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +226,7 @@ def init_embed(gen, cfg: ModelConfig, device) -> Params:
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig
           ) -> torch.Tensor:
-    return params["tok"].to(cdtype(cfg))[tokens.long()]
+    return SH.take_rows(params["tok"].to(cdtype(cfg)), tokens.long())
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
@@ -183,9 +235,8 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
     compute dtype's ``finfo.min`` (never sampled, no CE mass)."""
     vp = pad_vocab(cfg.vocab_size)
     w = params["tok"].T if cfg.tied_embeddings else params["head"]
-    logits = x @ w.to(x.dtype)
+    logits = SH.matmul(x, w.to(x.dtype))
     if vp != cfg.vocab_size:  # mask the padded vocabulary tail
-        mask = torch.arange(vp, device=x.device) < cfg.vocab_size
-        logits = torch.where(mask, logits,
-                             torch.finfo(logits.dtype).min)
+        logits = SH.mask_tail(logits, cfg.vocab_size,
+                              torch.finfo(logits.dtype).min)
     return logits

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
 from repro_torch.models import moe as M
@@ -187,6 +188,7 @@ def _run_blocks(per_layer: List[Params], x, cfg, remat: bool):
     aux = _zero(x)
     for p in per_layer:
         x, d = _run(_block_fwd, remat, p, x, cfg)
+        x = C.shard_batch(x)
         aux = aux + d
     return x, aux
 
@@ -210,7 +212,7 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """
     if cfg.family == "encdec":
         raise ValueError("use whisper_forward for encdec")
-    x = _embed(params, tokens, cfg, embeds)
+    x = C.shard_batch(_embed(params, tokens, cfg, embeds))
     per_layer = layers(params["blocks"])
     if cfg.family == "hybrid" and cfg.hybrid_period:
         # the shared attention block before each group of the mamba stack
@@ -263,13 +265,13 @@ def whisper_encode(params: Params, enc_embeds: torch.Tensor,
 def _cross_attend(p: Params, x: torch.Tensor, enc: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", enc.to(dt), p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", enc.to(dt), p["wv"].to(dt))
+    q = SH.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = SH.einsum("bsd,dhk->bshk", enc.to(dt), p["wk"].to(dt))
+    v = SH.einsum("bsd,dhk->bshk", enc.to(dt), p["wv"].to(dt))
     mask = torch.ones((x.shape[1], enc.shape[1]), dtype=torch.bool,
                       device=x.device)
     out = A._scores_softmax_value(q, k, v, mask, cfg)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    return SH.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
 
 
 def _whisper_dec_block(p, x, enc, cfg):
@@ -315,7 +317,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """Returns (last-position logits (B, Vp), decode cache at pos=S)."""
     b, s = tokens.shape
     dev = tokens.device
-    x = _embed(params, tokens, cfg, embeds)
+    x = C.shard_batch(_embed(params, tokens, cfg, embeds))
     remat = remat and torch.is_grad_enabled()
     per_layer = layers(params["blocks"])
 
@@ -333,7 +335,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                 y, _ = M.moe_ffn(p["moe"], h, cfg)
             else:
                 y = C.mlp(p["mlp"], h, cfg)
-            return x + y, kv
+            return C.shard_batch(x + y), C.shard_batch_tree(kv)
 
         kvs = []
         for p in per_layer:
@@ -386,9 +388,11 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> Params:
-    """Stacked per-layer decode caches at position 0, on ``device``."""
+    """Stacked per-layer decode caches at position 0, on ``device``
+    (``"meta"`` for shapes alone)."""
     from repro_torch.engine.plan import resolve_device
-    dev = resolve_device(device)
+    dev = (torch.device(device) if torch.device(device).type == "meta"
+           else resolve_device(device))
 
     def stacked(one, n=cfg.n_layers):
         return pytree.tree_map(
@@ -490,6 +494,8 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
         new = []
         for i, p in enumerate(per_layer):
             x, c = _block_decode(p, _index(cache[name], i), x, pos, cfg)
+            if name == "kv":
+                x = C.shard_batch(x)
             new.append(c)
         new_cache = {name: _stack(new)}
     new_cache["pos"] = torch.tensor(pos + 1, dtype=torch.int32)
@@ -506,7 +512,7 @@ def whisper_prefill(params: Params, enc_embeds: torch.Tensor,
                               device=enc.device)
     dt = C.cdtype(cfg)
     cache["cross"] = _stack([
-        {k: torch.einsum("bsd,dhk->bshk", enc.to(dt),
+        {k: SH.einsum("bsd,dhk->bshk", enc.to(dt),
                          p["xattn"][w].to(dt))
          for k, w in (("k", "wk"), ("v", "wv"))}
         for p in layers(params["dec_blocks"])])
@@ -530,12 +536,12 @@ def whisper_decode_step(params: Params, cache: Params, tokens: torch.Tensor,
         kvs.append(kv)
         x = x + y
         h = C.layer_norm(x, p["ln_x"], p["ln_xb"], cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", h, p["xattn"]["wq"].to(x.dtype))
+        q = SH.einsum("bsd,dhk->bshk", h, p["xattn"]["wq"].to(x.dtype))
         ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
         mask = torch.ones((1, ck.shape[1]), dtype=torch.bool, device=x.device)
         out = A._scores_softmax_value(q, ck.to(x.dtype), cv.to(x.dtype),
                                       mask, cfg)
-        x = x + torch.einsum("bshk,hkd->bsd", out,
+        x = x + SH.einsum("bshk,hkd->bsd", out,
                              p["xattn"]["wo"].to(x.dtype))
         h = C.layer_norm(x, p["ln2"], p["ln2b"], cfg.norm_eps)
         x = x + C.mlp(p["mlp"], h, cfg)

@@ -7,10 +7,11 @@ shapes: each expert processes at most
 overflow tokens fall through the residual connection.  Compute is
 proportional to the active experts (top_k), not to n_experts.
 
-The reference's expert-parallel mode (``EXPERT_PARALLEL``, experts
-sharded over a mesh axis) is sharding and comes with the multi-device
-slice (ROADMAP.md Queue 1 item 11c); on one device the expert weights
-are whole.
+Two parallelism modes (see :mod:`repro_torch.distributed.sharding`):
+  * TP (default): expert weights sharded on d_ff over "model".
+  * EP (``EXPERT_PARALLEL``): the expert axis sharded over "model"; the
+    ``(E, cap, D)`` dispatch buffer is redistributed to experts over
+    "model" (:func:`_shard_experts`).
 """
 from __future__ import annotations
 
@@ -21,9 +22,30 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import common as C
 
 Params = Dict[str, Any]
+
+# set by the dry run from RunConfig.expert_parallel (dbrx: 16 experts
+# over the 16-way model axis)
+EXPERT_PARALLEL = False
+
+
+def _shard_experts(expert_buf: torch.Tensor) -> torch.Tensor:
+    """EP: redistribute an (E, cap, D) DTensor buffer to experts over
+    'model' (replicated over the other mesh dims), when ``E`` divides;
+    anything else comes back as it is."""
+    if not EXPERT_PARALLEL or SH.current_mesh() is None \
+            or not SH.is_dtensor(expert_buf):
+        return expert_buf
+    mesh = expert_buf.device_mesh
+    sizes = dict(zip(SH.axis_names(mesh), mesh.shape))
+    if "model" not in sizes or expert_buf.shape[0] % sizes["model"] != 0:
+        return expert_buf
+    return expert_buf.redistribute(
+        mesh, SH.placements(SH.P("model", None, None), mesh))
+
 
 # sequences longer than this (and divisible by it) are dispatched chunk by
 # chunk, capacity per chunk, each chunk recomputed in the backward pass;
@@ -118,7 +140,7 @@ def _moe_ffn_flat(w: Params, x: torch.Tensor, cfg: ModelConfig,
     disp_idx = torch.where(keep, disp_idx, e * cap).reshape(-1)
     buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=x.device)
     buf = buf.index_copy(0, disp_idx, xt.repeat_interleave(k, dim=0))
-    expert_in = buf[:e * cap].reshape(e, cap, d)
+    expert_in = _shard_experts(buf[:e * cap].reshape(e, cap, d))
 
     g = torch.bmm(expert_in, w["gate"])
     u = torch.bmm(expert_in, w["up"])

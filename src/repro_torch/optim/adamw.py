@@ -7,6 +7,12 @@ differently.  The arithmetic here is the reference's, op for op, in
 float32.  Optimizer state mirrors the parameter tree.  ``count`` and the
 schedule live on the host as 0-d tensors (a step never waits on the
 card to read them).
+
+DTensor leaves (the sharded step's) update on their local shards: the
+global norm is reduced over the mesh, each gradient and parameter is
+placed as its moments are (they differ under ZeRO-2, where parameters
+are not sharded over ``data``), the arithmetic runs on the local
+tensors, and each new parameter goes back to its own placements.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.configs.base import RunConfig
+from repro_torch.distributed import sharding as SH
 
 F32 = torch.float32
 
@@ -45,10 +52,36 @@ def cosine_lr(step, run: RunConfig) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The L2 norm over every leaf (a plain tensor: a DTensor leaf's sum
+    of squares is reduced over its mesh)."""
     total = 0
     for x in pytree.leaves(tree):
-        total = total + torch.sum(torch.square(x.to(F32)))
+        total = total + SH.to_global(torch.sum(torch.square(x.to(F32))))
     return torch.sqrt(torch.as_tensor(total, dtype=F32))
+
+
+def _local(t, like):
+    """The local shard of ``t`` placed as DTensor ``like`` (``t`` itself
+    when ``like`` is plain)."""
+    if not SH.is_dtensor(like):
+        return t
+    if tuple(t.placements) != tuple(like.placements):
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
+
+
+def _wrap(local, like, to=None):
+    """A local shard placed as DTensor ``like``, then redistributed to
+    ``to``'s placements (``local`` itself when ``like`` is plain)."""
+    if not SH.is_dtensor(like):
+        return local
+    from torch.distributed.tensor import DTensor
+    out = DTensor.from_local(local, like.device_mesh, like.placements,
+                             run_check=False, shape=like.shape,
+                             stride=like.stride())
+    if to is not None and tuple(to.placements) != tuple(like.placements):
+        out = out.redistribute(to.device_mesh, to.placements)
+    return out
 
 
 @torch.no_grad()
@@ -77,8 +110,13 @@ def apply(grads, state: AdamWState, params, run: RunConfig,
         step_ = step_ + run.weight_decay * p.to(F32)
         return (p.to(F32) - lr * step_).to(p.dtype), m, v
 
-    outs = [one(*xs) for xs in zip(*(pytree.leaves(t) for t in (
-        grads, state.mu, state.nu, params)))]
+    outs = []
+    for g, m, v, p in zip(*(pytree.leaves(t) for t in (
+            grads, state.mu, state.nu, params))):
+        p_new, m_new, v_new = one(_local(g, m), _local(m, m), _local(v, m),
+                                  _local(p, m))
+        outs.append((_wrap(p_new, m, to=p), _wrap(m_new, m),
+                     _wrap(v_new, m)))
     new_params, mu, nu = (pytree.unflatten(tree, [o[i] for o in outs])
                           for i, tree in enumerate((params, state.mu,
                                                     state.nu)))

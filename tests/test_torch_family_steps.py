@@ -13,6 +13,8 @@ is held against the reference's on its own in
 ``test_torch_compression.py`` and composed in a train step in
 ``test_torch_train_step.py``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,3 +113,21 @@ def test_compressed_train_step_matches_reference(arch, monkeypatch):
                          pytree.leaves(pstate.params)):
         diff = float(np.abs(np.asarray(want) - _np(got)).max())
         assert diff <= rrun.lr, diff / rrun.lr
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b"])
+def test_gradients_at_grad_accum_2_match_reference(arch):
+    """Two microbatches (``grad_accum=2``, as the card's phases 3g-3i
+    run): the port's summed gradients and the last microbatch's metrics
+    against the reference's scan over microbatches, leaf by leaf."""
+    rc, pc, rrun, prun = _configs(arch, run=RUN)
+    rrun = dataclasses.replace(rrun, grad_accum=2)
+    prun = dataclasses.replace(prun, grad_accum=2)
+    params, model = _params(arch, rc, pc)
+    batch = _batch(rc)
+    ref_g, ref_m = R_GRADS(params, _j(batch), cfg=rc, run=rrun)
+    grads, m = PS.grads_and_metrics(model.tree(), _t(batch), pc, prun)
+    for k in ("loss", "ce", "aux"):
+        np.testing.assert_allclose(float(m[k]), float(ref_m[k]), rtol=1e-5,
+                                   atol=1e-7)
+    assert_leaves_close(ref_g, grads)

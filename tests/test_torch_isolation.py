@@ -20,11 +20,23 @@ FORBIDDEN = re.compile(
     re.MULTILINE)
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import torch
-import repro_torch
+import torch._dynamo  # models/__init__.py imports it; it sets an inductor
+import repro_torch    # cache path in the environment when imported
+env = dict(os.environ)
+names = []
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
+    names.append(m.name)
+# the launch tooling among them; importing starts no process group and
+# sets no environment variable (the dry run starts its fake group in main)
+assert {"repro_torch.launch.mesh", "repro_torch.launch.specs",
+        "repro_torch.launch.analysis", "repro_torch.launch.dryrun",
+        "repro_torch.distributed.sharding"} <= set(names), names
+import torch.distributed as dist
+assert not (dist.is_available() and dist.is_initialized())
+assert dict(os.environ) == env
 for fuse in ("none", "pyramid"):
     pyr = repro_torch.dwt2(torch.ones(2, 16, 16), levels=2, fuse=fuse,
                            device="cpu")
