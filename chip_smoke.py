@@ -181,6 +181,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
              per-device bytes, FLOPs, wire bytes and dominant term on the
              H100's constants (gloo, SMOKE sizes and the dry run's
              ``--smoke`` under --cpu-rehearsal);
+3j. entry points — the direct scheme oracles (``schemes.forward`` and
+             ``optimize.forward_optimized``, 3 wavelets x 6 schemes) on
+             one 2048^2 float32 image within CROSS_TOL of ``dwt2(levels=1,
+             backend="cuda")`` and of sep-lifting's forward, the Section 5
+             op counts printed beside the raw ones; then each module of
+             ``repro_torch.examples`` on the card, every counter at 0
+             before it and K1's launches exact after it: the quickstart
+             at 256^2 (round trips within ROUNDTRIP_TOL, LLs within
+             CROSS_TOL of the first scheme's, counts equal to a CPU run's,
+             ``apply_scheme_cuda`` against its plain version bit for bit,
+             the batched "levels" plan 3 launches and a cache hit); the
+             codec's 512^2 PSNR sweep, its out-of-core path on an 8192^2
+             memmap (1024^2 tiles, 4 levels: the streamed pyramid equal
+             to the monolithic ``dwt2`` bit for bit, the keep-share PSNRs
+             within 0.01 dB of the monolithic path's) and its served path
+             (64 tiles of 64^2, each equal to direct ``dwt2``/``idwt2``
+             bit for bit; batches and occupancy); ``train_lm`` at its
+             defaults (qwen2-100m, batch 8, seq 256, 300 steps) plain and
+             compressed (losses finite and decreasing, K1 per step = the
+             compression plans' launches, one step's K1 against its plain
+             version bit for bit, checkpoints 100/200/300 committed; ms per
+             step, tokens/s, peak memory, the final-loss gap); the
+             compression demo (minitron-8b SMOKE, 120 steps x none/dwt:2/
+             dwt:1: byte lines exact, all three decreasing, both gaps);
+             ``serve_lm`` on mixtral-8x7b SMOKE and qwen2-0.5b at full
+             width and depth (batch 4, prompt 32, 32 new tokens: the
+             teacher-forced logits of every step against one forward
+             within 2e-2 in float32 compute, the configured dtype's
+             difference and largest |logit| printed; ms per token); each
+             step's time (tiny sizes and SMOKE configs under
+             --cpu-rehearsal);
 4. times   — CUDA events after warm-up, median of 7 runs: per launch and
              per transform, kernel vs plain version vs torch backend,
              bytes, GB/s and the bound (bytes / 3.35 TB/s against
@@ -2028,6 +2059,20 @@ def k1_calls(TW, fn):
         TW.tap_window = kernel
 
 
+def versus_plain(TW, seen):
+    """A K1 shim for :func:`k1_calls`: each call's outputs compared with
+    its plain version on the same planes, the largest |diff| and the
+    calls compared counted in ``seen`` (keys "worst" and "calls")."""
+    def shim(kernel, win, planes):
+        out = kernel(win, planes)
+        ref = TW.tap_window_ref(win, planes)
+        seen["worst"] = max([seen["worst"]] + [max_abs(a, b)
+                                               for a, b in zip(out, ref)])
+        seen["calls"] += 1
+        return out
+    return shim
+
+
 def _compression_launches(E, CMP, pytree, params, levels, device):
     """K1 launches of one compressed step: forward and inverse plan of
     every leaf's tile, ``plan.launches`` each; and the tiles."""
@@ -2188,19 +2233,10 @@ def hold_k1(torch, R, TW, CMP, pytree, grads, efb, step, levels, device,
     pair on backend "torch".  Returns (the largest K1 |diff|, the K1
     calls compared, the worst ``CROSS_TOL`` margin)."""
     phase = int(step) % CMP.n_phases(levels)
-    worst, n_cmp = 0.0, 0
-
-    def versus_plain(kernel, win, planes):
-        nonlocal worst, n_cmp
-        out = kernel(win, planes)
-        ref = TW.tap_window_ref(win, planes)
-        worst = max([worst] + [max_abs(a, b) for a, b in zip(out, ref)])
-        n_cmp += 1
-        return out
-
+    seen = dict(worst=0.0, calls=0)
     import math
     cross = -math.inf
-    with torch.no_grad(), k1_calls(TW, versus_plain):
+    with torch.no_grad(), k1_calls(TW, versus_plain(TW, seen)):
         for g, e in zip(pytree.leaves(grads), pytree.leaves(efb)):
             acc = e + g
             c = CMP.compress(acc, phase, levels)
@@ -2227,7 +2263,7 @@ def hold_k1(torch, R, TW, CMP, pytree, grads, efb, step, levels, device,
             cross = max(cross, rel_violation(g_hat, ref,
                                              **CROSS_TOL["float32"]))
             del g_hat, ref
-    return worst, n_cmp, cross
+    return seen["worst"], seen["calls"], cross
 
 
 def check_k1_tiles(E, CMP, tiles, levels, device, where):
@@ -2900,22 +2936,13 @@ def phase_multidevice(torch, R, TW, PW, device, cpu):
             SH.distribute_tree(state0.opt, shd.opt), state0.efb,
             state0.step)
         step = ST.make_train_step_podwise(mesh, cfg, run_c)
-        worst, n_cmp = 0.0, 0
-
-        def versus_plain(kernel, win, planes):
-            nonlocal worst, n_cmp
-            out = kernel(win, planes)
-            want = TW.tap_window_ref(win, planes)
-            worst = max([worst] + [max_abs(a, b) for a, b in
-                                   zip(out, want)])
-            n_cmp += 1
-            return out
+        seen = dict(worst=0.0, calls=0)
 
         def podwise(s, b):
             # the first step's K1 calls are held against the plain version
-            if n_cmp:
+            if seen["calls"]:
                 return step(s, b)
-            with k1_calls(TW, versus_plain):
+            with k1_calls(TW, versus_plain(TW, seen)):
                 return step(s, b)
 
         ST.POD_REDUCE.zero()
@@ -2924,10 +2951,12 @@ def phase_multidevice(torch, R, TW, PW, device, cpu):
                                                "podwise")
         held("podwise", out, losses)
         del podwise_state, out
-        check(n_cmp == per_step,
-              f"phase 3i: {n_cmp} K1 calls compared, expected {per_step}")
-        check(worst == 0.0, f"phase 3i: K1 in the podwise step differs "
-                            f"from its plain version by {worst}")
+        check(seen["calls"] == per_step,
+              f"phase 3i: {seen['calls']} K1 calls compared, expected "
+              f"{per_step}")
+        check(seen["worst"] == 0.0, f"phase 3i: K1 in the podwise step "
+                                    f"differs from its plain version by "
+                                    f"{seen['worst']}")
         moved = ST.POD_REDUCE.bytes
         check(moved == sz["steps"] * slice_bytes
               and ST.POD_REDUCE.calls == sz["steps"] * len(tiles),
@@ -2936,7 +2965,8 @@ def phase_multidevice(torch, R, TW, PW, device, cpu):
               f"{sz['steps']} x {slice_bytes} bytes in "
               f"{sz['steps'] * len(tiles)}")
         print(f"podwise step: K1 launches per step {per_step}, one step's "
-              f"{n_cmp} calls vs the plain version max |diff| {worst}; "
+              f"{seen['calls']} calls vs the plain version max |diff| "
+              f"{seen['worst']}; "
               f"pod all-reduce {moved // sz['steps']} bytes per step in "
               f"{ST.POD_REDUCE.calls // sz['steps']} calls == the slices' "
               f"sum, against {grad_bytes} bytes of float32 gradients "
@@ -2949,7 +2979,8 @@ def phase_multidevice(torch, R, TW, PW, device, cpu):
                   ", ".join(f"{k} {last.get(k, 0.0):.2f}"
                             for k in POD_SPANS) + f"  [{card}]")
         print(json.dumps({"phase3i": {
-            "card": card, "per_step_k1": per_step, "k1_max_abs": worst,
+            "card": card, "per_step_k1": per_step,
+            "k1_max_abs": seen["worst"],
             "pod_reduce_bytes_per_step": moved // sz["steps"],
             "grad_bytes": grad_bytes, "plain_spans_ms": ref_spans[-1],
             "podwise_spans_ms": pod_spans[-1], "losses": ref_losses}}))
@@ -2965,6 +2996,442 @@ def phase_multidevice(torch, R, TW, PW, device, cpu):
     shutil.rmtree(work, ignore_errors=True)
     print(f"phase 3i launches (driven paths): {counts.launched}")
     print(f"phase 3i took {time.perf_counter() - t_phase:.1f} s")
+    return counts.launched
+
+
+# phase 3j: the repo's entry points (repro_torch.examples) on the card at
+# their own defaults, and the direct scheme oracles at the main path's
+# width (tiny sizes through the plain versions under --cpu-rehearsal)
+ENTRY = dict(oracle=2048, quickstart=256, codec=512, tiled=(8192, 1024),
+             serve=512, train_arch="qwen2-100m", train_steps=300,
+             train_batch=8, train_seq=256, demo_steps=120,
+             serve_arch="qwen2-0.5b", serve_batch=4, serve_prompt=32,
+             serve_new=32)
+ENTRY_REHEARSAL = dict(ENTRY, oracle=64, quickstart=64, codec=128,
+                       tiled=(256, 64), serve=128, train_arch="qwen2-0.5b",
+                       train_steps=20, train_batch=2, train_seq=32,
+                       demo_steps=20)
+PSNR_DB = 0.01          # tiled against monolithic PSNR rows
+
+
+def teacher_forced_vs_forward(torch, LMm, SL, out, cfg):
+    """Max |log-softmax| difference between the serve example's logits
+    with its own greedy tokens fed back (teacher-forced: the prefill's
+    and every decode step's) and one full forward over the prompt and
+    those tokens, and the largest |logit| of the forward (the scale of
+    the compute dtype's rounding).  MoE configs run at capacity_factor 8
+    in both, as in :func:`decode_vs_forward`, so that no token is
+    dropped."""
+    import dataclasses
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    p, gen = out["prompts"], torch.from_numpy(out["tokens"]).to(
+        out["prompts"].device)
+    n = gen.shape[1]
+    got = SL.generate(out["params"], cfg, p, n, teacher=gen[:, :n - 1])
+    v = cfg.vocab_size
+    lsm = lambda x: torch.log_softmax(x.float()[..., :v], -1)
+    with torch.no_grad():
+        full, _ = LMm.forward(out["params"], torch.cat(
+            [p, gen[:, :n - 1].to(p.dtype)], 1), cfg)
+    start = p.shape[1] - 1
+    return (max(float((lsm(lg) - lsm(full[:, start + i])).abs().max())
+                for i, lg in enumerate(got["logits"])),
+            float(full.float()[..., :v].abs().max()))
+
+
+def phase_entry_points(torch, R, TW, PW, device, cpu):
+    """Phase 3j: the direct scheme oracles (``schemes.forward``,
+    ``optimize.forward_optimized``) at the main path's width against
+    ``dwt2`` on K1 and each other, then each module of
+    ``repro_torch.examples`` driven on the card at its defaults (the
+    quickstart, the codec's sweep, out-of-core and served paths,
+    ``train_lm`` plain and compressed, the compression demo, ``serve_lm``
+    on mixtral's SMOKE and qwen2-0.5b at full width), each with every
+    counter at 0, its K1 launches exact and its results checked.
+    Returns the launches of each kernel it drove."""
+    print("== phase 3j: the entry points (repro_torch.examples) and the "
+          "direct scheme oracles", flush=True)
+    import dataclasses
+    import shutil
+    import numpy as np
+    from repro_torch import engine as E
+    from repro_torch import pytree
+    from repro_torch import serve as SV
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import compression as CMP
+    from repro_torch.core import optimize as O
+    from repro_torch.core import schemes as S
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.examples import dwt_image_codec as D
+    from repro_torch.examples import quickstart as Q
+    from repro_torch.examples import serve_lm as SL
+    from repro_torch.examples import train_lm as TLx
+    from repro_torch.examples import wavelet_compression_demo as WD
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import lm as LMm
+    from repro_torch.runtime import steps as ST
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sz = ENTRY_REHEARSAL if cpu else ENTRY
+    counts = Launches(TW, PW, cpu, "phase 3j")
+    card = "cpu rehearsal" if cpu else nvidia_smi()
+    work = ROOT / "build" / "chip_smoke" / "phase3j"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    summary = {"card": card}
+    cross = CROSS_TOL["float32"]
+
+    def step_done(name, t0):
+        no_fallbacks(f"phase 3j, {name}")
+        summary.setdefault("seconds", {})[name] = time.perf_counter() - t0
+        print(f"phase 3j {name} took {summary['seconds'][name]:.1f} s",
+              flush=True)
+
+    # -- 1. the direct oracles at the main path's width ------------------
+    t0 = time.perf_counter()
+    n = sz["oracle"]
+    img = torch.randn((n, n), generator=torch.Generator().manual_seed(22)) \
+        .to(device)
+    counts.zero()
+    k1 = 0
+    worst = -float("inf")
+    print(f"oracles on one {n}x{n} float32 image: schemes.forward and "
+          f"optimize.forward_optimized against dwt2(levels=1, "
+          f"backend='cuda') and sep-lifting's forward (CROSS_TOL)")
+    print(f"  {'wavelet':7s} {'scheme':13s} steps ops_raw ops_opt "
+          f"margin_vs_dwt2 margin_vs_sep-lifting")
+    for w in WAVELETS:
+        lifting = S.forward(img, w, "sep-lifting")
+        for s in SCHEMES:
+            pyr = R.dwt2(img, wavelet=w, scheme=s, levels=1,
+                         backend="cuda", device=device)
+            k1 += R.get_plan(wavelet=w, scheme=s, levels=1, shape=(n, n),
+                             device=device).launches
+            kernel = (pyr.ll,) + tuple(pyr.details[0])
+            m_k, m_l = -float("inf"), -float("inf")
+            for fn in (S.forward, O.forward_optimized):
+                planes = fn(img, w, s)
+                check(all(p.device == img.device for p in planes),
+                      f"phase 3j: {fn.__name__} left the image's device")
+                for a, b, c in zip(planes, kernel, lifting):
+                    m_k = max(m_k, rel_violation(a, b, **cross))
+                    m_l = max(m_l, rel_violation(a, c, **cross))
+                del planes
+            check(m_k <= 0 and m_l <= 0,
+                  f"phase 3j: {w} {s} oracle beyond CROSS_TOL (vs dwt2 "
+                  f"{m_k}, vs sep-lifting {m_l})")
+            worst = max(worst, m_k, m_l)
+            t1 = O.table1_ops(w, s)
+            print(f"  {w:7s} {s:13s} {t1['steps']:5d} {t1['ops_raw']:7d} "
+                  f"{t1['ops_optimized']:7d} {m_k:14.3e} {m_l:14.3e}")
+    counts.read("oracles' dwt2", k1)
+    summary["oracles"] = dict(size=n, pairs=len(WAVELETS) * len(SCHEMES),
+                              worst_margin=worst)
+    del img, lifting, pyr, kernel
+    step_done("oracles", t0)
+
+    # -- 2. the quickstart ------------------------------------------------
+    t0 = time.perf_counter()
+    n = sz["quickstart"]
+    kw3 = dict(wavelet="cdf97", levels=3, shape=(n, n), device=device)
+    k1 = sum(2 * R.get_plan(scheme=s, **kw3).launches for s in SCHEMES) \
+        + K.scheme_stats("cdf97", "ns-polyconv", True, (n, n))["launches"] \
+        + 3 * R.get_plan(scheme="ns-polyconv", fuse="levels",
+                         **dict(kw3, shape=(8, n, n))).launches
+    counts.zero()
+    qs = Q.run(n, device)
+    counts.read("quickstart", k1)
+    img = Q.make_test_image(n, device)
+    for row in qs["schemes"]:
+        check(rel_violation(row["rec"], img, **ROUNDTRIP_TOL["float32"])
+              <= 0, f"phase 3j: quickstart {row['scheme']} round trip")
+        check(rel_violation(row["ll"], qs["schemes"][0]["ll"], **cross)
+              <= 0, f"phase 3j: quickstart {row['scheme']} LL vs "
+                    f"{qs['schemes'][0]['scheme']}'s")
+    stat_keys = ("steps", "launches", "ops", "ops_compiled")
+    counts_of = lambda r: (
+        [(x["scheme"], x["steps"], x["ops"]) for x in r["schemes"]],
+        r["optimized"],
+        [[st[k] for k in stat_keys] for st in (r["kernel"]["sep_conv"],
+                                               r["kernel"]["ns_conv"])],
+        (r["engine"]["steps"], r["engine"]["launches"]))
+    print("quickstart's counts on the CPU, for comparison:")
+    on_cpu = Q.run(n, "cpu")
+    check(counts_of(qs) == counts_of(on_cpu),
+          f"phase 3j: quickstart counts differ from the CPU's: "
+          f"{counts_of(qs)} vs {counts_of(on_cpu)}")
+    eng = qs["engine"]
+    check(eng["launches"] == 3, f"phase 3j: batched levels plan launches "
+                                f"{eng['launches']}")
+    check(eng["stats"]["hits"] == eng["first"]["hits"] + 1
+          and eng["stats"]["misses"] == eng["first"]["misses"],
+          f"phase 3j: the second batched call missed the plan cache "
+          f"({eng['first']} -> {eng['stats']})")
+    k_launches = K.scheme_stats("cdf97", "ns-polyconv", True,
+                                (n, n))["launches"]
+    seen = dict(worst=0.0, calls=0)
+    counts.zero()
+    with torch.no_grad(), k1_calls(TW, versus_plain(TW, seen)):
+        again = K.apply_scheme_cuda(img, wavelet="cdf97",
+                                    scheme="ns-polyconv", optimize=True)
+    counts.read("quickstart kernel vs plain", k_launches, count=False)
+    same = max(max_abs(a, b) for a, b in zip(again, qs["kernel"]["subbands"]))
+    check(seen["calls"] == k_launches and seen["worst"] == 0.0
+          and same == 0.0,
+          f"phase 3j: apply_scheme_cuda vs its plain version: "
+          f"{seen['calls']} launches compared, max |diff| {seen['worst']}, "
+          f"rerun {same}")
+    print(f"quickstart: counts equal the CPU's; the batched 'levels' plan "
+          f"{eng['launches']} launches, second call a cache hit; "
+          f"apply_scheme_cuda vs its plain version {seen['calls']} "
+          f"launches, max |diff| {seen['worst']}")
+    summary["quickstart"] = dict(size=n, k1=k1,
+                                 kernel_vs_plain=seen["worst"])
+    del qs, on_cpu, img, again
+    step_done("quickstart", t0)
+
+    # -- 3. the codec: the sweep, out of core, served ----------------------
+    t0 = time.perf_counter()
+    n = sz["codec"]
+    L = 4
+    plan = lambda **kw: R.get_plan(levels=L, device=device, **D.CODEC, **kw)
+    counts.zero()
+    sweep = D.main_sweep(n, L, device)
+    counts.read("codec sweep", 7 * plan(shape=(n, n)).launches)
+    check(sweep["err"] <= ROUNDTRIP_TOL["float32"]["atol"],
+          f"phase 3j: codec round trip {sweep['err']}")
+    n, t = sz["tiled"]
+    splan = plan(shape=(n, n), tiles=(t, t), fuse="levels")
+    k1 = splan.grid.grid_shape[0] * splan.launches \
+        + 3 * plan(shape=(n, n), tiles=(t, t)).launches
+    counts.zero()
+    t1 = time.perf_counter()
+    tiled = D.main_tiled(n, t, L, device)
+    sync()
+    tiled_s = time.perf_counter() - t1
+    counts.read("codec out of core", k1)
+    counts.zero()
+    mono = R.dwt2(tiled["image"], levels=L, fuse="levels", device=device,
+                  **D.CODEC)
+    d, _ = _planes_np_equal(torch, device, tiled["pyramid"], mono)
+    check(d == 0.0, f"phase 3j: streamed pyramid vs monolithic dwt2 off by "
+                    f"{d}")
+    print("the same keep shares through the monolithic dwt2/idwt2:")
+    mono_rows = D.keep_sweep(R.flatten_pyramid(mono), tiled["image"], L,
+                             [k for k, _ in tiled["rows"]], device=device)
+    counts.read("codec monolithic comparison",
+                plan(shape=(n, n), fuse="levels").launches
+                + len(mono_rows) * plan(shape=(n, n)).launches, count=False)
+    gaps = [abs(a - b) for (_, a), (_, b) in zip(tiled["rows"], mono_rows)]
+    check(max(gaps) <= PSNR_DB, f"phase 3j: tiled PSNRs {tiled['rows']} vs "
+                                f"monolithic {mono_rows}")
+    check(tiled["err"] <= ROUNDTRIP_TOL["float32"]["atol"],
+          f"phase 3j: out-of-core round trip {tiled['err']}")
+    print(f"out of core: streamed pyramid == monolithic dwt2 bit for bit; "
+          f"PSNRs within {max(gaps):.4f} dB of the monolithic path; "
+          f"{tiled_s:.2f} s for the codec ({n}x{n}, {t}^2 tiles)")
+    del tiled["image"], mono
+    if cuda:
+        torch.cuda.empty_cache()
+    n = sz["serve"]
+    SV.reset_metrics()
+    counts.zero()
+    served = D.main_serve(n, device=device)
+    st = served["stats"]
+    kw = dict(levels=3, backend="cuda", fuse="levels", device=device,
+              **D.CODEC)
+    counts.read("codec served", st["batches"] * R.get_plan(
+        shape=(1, 64, 64), **kw).launches)
+    counts.zero()
+    recs = []
+    for tile, pyr in zip(served["tiles"], served["pyramids"]):
+        d, _ = _planes_np_equal(torch, device, pyr, R.dwt2(
+            np.ascontiguousarray(tile), **kw))
+        check(d == 0.0, f"phase 3j: a served tile differs from dwt2 by {d}")
+        recs.append(R.idwt2(pyr, **{k: v for k, v in kw.items()
+                                    if k != "levels"}).cpu().numpy())
+    per_row = n // 64
+    whole = np.block([recs[r * per_row:(r + 1) * per_row]
+                      for r in range(per_row)])
+    counts.read("codec served comparison", 2 * len(recs) * R.get_plan(
+        shape=(64, 64), **kw).launches, count=False)
+    check(np.array_equal(whole, served["reconstruction"]),
+          "phase 3j: served reconstruction differs from direct idwt2")
+    check(served["err"] <= ROUNDTRIP_TOL["float32"]["atol"],
+          f"phase 3j: served round trip {served['err']}")
+    print(f"served: {len(served['tiles'])} tiles equal to direct dwt2/idwt2 "
+          f"bit for bit; {st['served']} requests in {st['batches']} batches, "
+          f"occupancy {st['mean_occupancy']:.3f}")
+    summary["codec"] = dict(sweep=sweep["rows"], tiled=tiled["rows"],
+                            tiled_monolithic=mono_rows,
+                            tiled_seconds=tiled_s,
+                            served=served["rows"],
+                            served_batches=st["batches"],
+                            served_occupancy=st["mean_occupancy"],
+                            served_p50_ms=st["p50_ms"],
+                            served_p99_ms=st["p99_ms"])
+    del tiled, served
+    step_done("codec", t0)
+
+    # -- 4. train_lm, plain and compressed ---------------------------------
+    t0 = time.perf_counter()
+    runs = {}
+    for compress in (False, True):
+        tag = "compressed" if compress else "plain"
+        ckpt = work / f"train_lm_{tag}"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        counts.zero()
+        t1 = time.perf_counter()
+        out = TLx.run_training(sz["train_steps"], sz["train_arch"],
+                               sz["train_batch"], sz["train_seq"], compress,
+                               str(ckpt), device=device)
+        sync()
+        wall = time.perf_counter() - t1
+        res = out["result"]
+        cfg, run = TLx.configs(sz["train_arch"], sz["train_steps"], compress,
+                               str(ckpt))
+        levels = ST.compression_levels(run)
+        per_step = (_compression_launches(E, CMP, pytree, res.state.params,
+                                          levels, device)[0]
+                    if compress else 0)
+        counts.read(f"train_lm {tag}", sz["train_steps"] * per_step)
+        losses = res.losses
+        check(len(losses) == sz["train_steps"]
+              and all(np.isfinite(losses)),
+              f"phase 3j: train_lm {tag} losses {losses}")
+        check(out["last10"] < out["first10"],
+              f"phase 3j: train_lm {tag} did not decrease: "
+              f"{out['first10']} -> {out['last10']}")
+        ck = Checkpointer(str(ckpt), keep=run.keep_checkpoints)
+        want = sorted({*range(run.checkpoint_every, sz["train_steps"],
+                              run.checkpoint_every),
+                       sz["train_steps"]})[-run.keep_checkpoints:]
+        have = sorted(int(p.name.split("_")[1]) for p in ckpt.glob("step_*")
+                      if (p / "COMMITTED").exists())
+        check(have == want and ck.latest_step() == sz["train_steps"],
+              f"phase 3j: train_lm {tag} checkpoints {have}, want {want}")
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        tokens = sz["train_batch"] * sz["train_seq"]
+        runs[tag] = dict(first10=out["first10"], last10=out["last10"],
+                         final=losses[-1], ms_per_step=wall / len(losses)
+                         * 1e3, tokens_per_s=tokens * len(losses) / wall,
+                         peak_bytes=peak, k1_per_step=per_step,
+                         checkpoints=have, seconds=wall)
+        print(f"train_lm {tag}: {wall / len(losses) * 1e3:.2f} ms/step "
+              f"(wall, checkpoints included), "
+              f"{tokens * len(losses) / wall:,.0f} tokens/s, peak "
+              f"{peak / 2**30:.2f} GiB, K1 per step {per_step}, "
+              f"checkpoints {have}  [{card}]")
+        if compress:
+            # one more step's real gradients through compression, K1 held
+            # against its plain version launch by launch
+            batch = {k: torch.from_numpy(v).to(device) for k, v in
+                     make_pipeline(cfg, seed=run.seed).batch_at(
+                         sz["train_steps"], ShapeConfig(
+                             "train_example", "train", sz["train_seq"],
+                             sz["train_batch"])).items()}
+            state = res.state
+            grads, _ = ST.grads_and_metrics(state.params, batch, cfg, run)
+            counts.zero()
+            worst, n_cmp, margin = hold_k1(torch, R, TW, CMP, pytree, grads,
+                                           state.efb, state.step, levels,
+                                           device, "phase 3j, train_lm")
+            counts.read("train_lm comparison with the plain version",
+                        per_step, count=False)
+            check(n_cmp == per_step and worst == 0.0 and margin <= 0.0,
+                  f"phase 3j: train_lm K1 vs plain: {n_cmp} of {per_step} "
+                  f"calls, max |diff| {worst}, g_hat margin {margin}")
+            print(f"train_lm compressed: one step's gradients, {n_cmp} K1 "
+                  f"launches vs the plain version, max |diff| {worst}; "
+                  f"g_hat cuda vs torch worst margin {margin:.3e}")
+            runs[tag]["k1_max_abs_diff"] = worst
+            del grads, batch, state
+        del out, res
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    gap = runs["compressed"]["last10"] - runs["plain"]["last10"]
+    print(f"train_lm final-loss gap (compressed - plain, last10): "
+          f"{gap:+.4f}")
+    summary["train_lm"] = dict(runs, gap=gap, steps=sz["train_steps"])
+    step_done("train_lm", t0)
+
+    # -- 5. the compression demo -------------------------------------------
+    t0 = time.perf_counter()
+    cfg, run = get_config("minitron-8b", smoke=True)
+    meta = LMm.init_params(None, cfg, "meta")
+    per_step = {lv: _compression_launches(E, CMP, pytree, meta, lv,
+                                          device)[0] for lv in (1, 2)}
+    counts.zero()
+    demo = WD.run_demo(sz["demo_steps"], device, ckpt_root=str(work))
+    counts.read("compression demo", sz["demo_steps"] * sum(per_step.values()))
+    check(demo["raw_bytes"] == cfg.n_params() * 4
+          and demo["dwt2_bytes"] == cfg.n_params() * 4 / 16,
+          f"phase 3j: demo bytes {demo['raw_bytes']}, {demo['dwt2_bytes']}")
+    mean = statistics.fmean
+    for tag, losses in demo["losses"].items():
+        check(all(np.isfinite(losses))
+              and mean(losses[-10:]) < mean(losses[:10]),
+              f"phase 3j: demo {tag} did not decrease: {losses[:10]} ... "
+              f"{losses[-10:]}")
+    print(f"compression demo: K1 per step {per_step[2]} at dwt:2, "
+          f"{per_step[1]} at dwt:1; gaps dwt:2 {demo['gap_dwt2']:+.4f}, "
+          f"dwt:1 {demo['gap_dwt1']:+.4f}")
+    summary["demo"] = dict(
+        steps=sz["demo_steps"], gap_dwt2=demo["gap_dwt2"],
+        gap_dwt1=demo["gap_dwt1"], k1_per_step=per_step,
+        final={k: mean(v[-10:]) for k, v in demo["losses"].items()})
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    step_done("demo", t0)
+
+    # -- 6. serve_lm: its default, and qwen2-0.5b at full width ------------
+    t0 = time.perf_counter()
+    summary["serve_lm"] = {}
+    for arch, cfg in (("mixtral-8x7b", None),
+                      (sz["serve_arch"], get_config(sz["serve_arch"],
+                                                    smoke=cpu)[0])):
+        counts.zero()
+        out = (SL.serve(device=device) if cfg is None else
+               SL.serve(batch=sz["serve_batch"],
+                        prompt_len=sz["serve_prompt"],
+                        new_tokens=sz["serve_new"], device=device, cfg=cfg))
+        cfg = out["cfg"]
+        errs, scale = {}, {}
+        for dt in ("float32", cfg.dtype):
+            errs[dt], scale[dt] = teacher_forced_vs_forward(
+                torch, LMm, SL, out, dataclasses.replace(cfg, dtype=dt))
+        counts.read(f"serve_lm {arch}", 0)
+        check(errs["float32"] < DECODE_TOL,
+              f"phase 3j: serve_lm {arch} teacher-forced decode vs forward "
+              f"{errs}")
+        print(f"serve_lm {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}): {out['ms_per_token']:.2f} ms/token; "
+              f"teacher-forced decode vs forward max |log-softmax diff| "
+              f"{errs['float32']:.3e} in float32 (bound {DECODE_TOL}), "
+              f"{errs[cfg.dtype]:.3e} in {cfg.dtype} (largest |logit| "
+              f"{scale[cfg.dtype]:.3f}); greedy tokens "
+              f"{out['tokens'][0][:8].tolist()} ...  [{card}]")
+        summary["serve_lm"][cfg.arch_id] = dict(
+            layers=cfg.n_layers, d_model=cfg.d_model,
+            ms_per_token=out["ms_per_token"], prefill_s=out["prefill_s"],
+            decode_err=errs, max_abs_logit=scale,
+            tokens=out["tokens"][0].tolist())
+        del out
+        if cuda:
+            torch.cuda.empty_cache()
+    step_done("serve_lm", t0)
+
+    shutil.rmtree(work, ignore_errors=True)
+    summary["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase3j": summary}))
+    print(f"phase 3j launches (driven paths): {counts.launched}")
+    print(f"phase 3j took {time.perf_counter() - t_phase:.1f} s")
     return counts.launched
 
 
@@ -3292,6 +3759,10 @@ def main(argv=None):
     for name, n in phase_multidevice(torch, R, TW, PW, device, cpu).items():
         launched[name] += n
     no_fallbacks("phase 3i")
+    for name, n in phase_entry_points(torch, R, TW, PW, device,
+                                      cpu).items():
+        launched[name] += n
+    no_fallbacks("phase 3j")
     entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
     no_fallbacks("phase 4")
     print(f"total {time.perf_counter() - t_start:.1f} s")

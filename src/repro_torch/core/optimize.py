@@ -32,6 +32,8 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.core import poly as P
 from repro_torch.core import schemes as S
 from repro_torch.core.wavelets import Wavelet, get_wavelet
@@ -221,6 +223,35 @@ def build_optimized(wavelet: str | Wavelet, scheme: str) -> OptScheme:
         raise ValueError(f"unknown scheme {scheme!r}; available: {S.SCHEMES}")
 
     return OptScheme(name=scheme + "+opt", wavelet=w.name, steps=tuple(steps))
+
+
+# ---------------------------------------------------------------------------
+# Numeric application (reference path)
+# ---------------------------------------------------------------------------
+
+def apply_opt_step(st: OptStep, planes: S.Planes) -> S.Planes:
+    for m in st.pre:
+        planes = S.apply_matrix(m, planes)
+    if st.main is not None:
+        planes = S.apply_matrix(st.main, planes)
+    for m in st.post:
+        planes = S.apply_matrix(m, planes)
+    return planes
+
+
+def apply_opt_scheme(sch: OptScheme, planes: S.Planes) -> S.Planes:
+    for st in sch.steps:
+        planes = apply_opt_step(st, planes)
+    return planes
+
+
+def forward_optimized(x: torch.Tensor, wavelet: str = "cdf97",
+                      scheme: str = "ns-polyconv") -> S.Planes:
+    """Single-level 2-D DWT through the Section 5 reduced-operation
+    scheme (pre, main, post matrices of each step); the same
+    coefficients as :func:`repro_torch.core.schemes.forward`."""
+    sch = build_optimized(wavelet, scheme)
+    return apply_opt_scheme(sch, S.to_planes(x))
 
 
 def table1_ops(wavelet: str, scheme: str) -> dict:

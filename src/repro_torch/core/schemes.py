@@ -350,6 +350,15 @@ def apply_scheme(scheme: Scheme, planes: Planes) -> Planes:
     return planes
 
 
+def forward(x: torch.Tensor, wavelet: str = "cdf97",
+            scheme: str = "ns-polyconv") -> Planes:
+    """Single-level 2-D DWT: image -> (LL, HL, LH, HH), by applying the
+    scheme's matrices directly (the paper's definition of each scheme,
+    independent of the tap compiler); computes on ``x``'s device."""
+    s = build_scheme(wavelet, scheme)
+    return apply_scheme(s, to_planes(x))
+
+
 def inverse(subbands: Planes, wavelet: str = "cdf97",
             scheme: str = "ns-polyconv") -> torch.Tensor:
     """Single-level 2-D inverse DWT: (LL, HL, LH, HH) -> image."""

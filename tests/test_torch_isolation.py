@@ -4,7 +4,7 @@ with JAX only), and importing the port — or driving its CPU paths, the
 profiler, a CPU server and a compressed train step included — builds
 nothing (each CUDA source is compiled at its kernels' first launch).
 The import and the source scan cover every module of the port, the MoE,
-RWKV6 and Mamba2 modules among them."""
+RWKV6 and Mamba2 modules and the example entry points among them."""
 import os
 import re
 import subprocess
@@ -34,6 +34,10 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 assert {"repro_torch.launch.mesh", "repro_torch.launch.specs",
         "repro_torch.launch.analysis", "repro_torch.launch.dryrun",
         "repro_torch.distributed.sharding"} <= set(names), names
+# the entry points among them; importing one runs nothing
+assert {"repro_torch.examples." + m for m in (
+    "quickstart", "dwt_image_codec", "train_lm", "wavelet_compression_demo",
+    "serve_lm")} <= set(names), names
 import torch.distributed as dist
 assert not (dist.is_available() and dist.is_initialized())
 assert dict(os.environ) == env
