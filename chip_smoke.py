@@ -1128,9 +1128,7 @@ def phase_telemetry(torch, R, TW, PW, device, cpu, gen, x, timer):
         T.reset()
 
     # -- 1. spans on the device, inside torch.profiler -------------------
-    prev_prof = os.environ.get(T.PROFILER_ANNOTATIONS_ENV)
-    os.environ[T.PROFILER_ANNOTATIONS_ENV] = "1"
-    T.reload()
+    # (a span is a profiler range whenever a profiler session records)
     T.set_mode("spans")
     fresh("start")
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -1140,16 +1138,8 @@ def phase_telemetry(torch, R, TW, PW, device, cpu, gen, x, timer):
             pyr = R.dwt2(x, fuse=fuse, **kw)
             R.idwt2(pyr, fuse=fuse, **kwi)
 
-    try:
-        with profile(activities=acts) as prof:
-            drive(four, k1=2 * L, k2=1, k3=1)
-    finally:
-        if prev_prof is None:
-            del os.environ[T.PROFILER_ANNOTATIONS_ENV]
-        else:
-            os.environ[T.PROFILER_ANNOTATIONS_ENV] = prev_prof
-        T.reload()
-    T.set_mode("spans")
+    with profile(activities=acts) as prof:
+        drive(four, k1=2 * L, k2=1, k3=1)
     recs = T.TRACER.records()
     clock = "cuda" if cuda else "host"
     for fuse in ("pyramid", "levels"):

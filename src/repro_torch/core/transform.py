@@ -59,6 +59,7 @@ import torch
 
 from typing import List
 
+from repro_torch import telemetry as T
 from repro_torch.engine.pyramid import (Detail, Pyramid, Pyramid3,
                                         WaveletPacket2D)
 
@@ -127,12 +128,13 @@ def _plan_for(shape, dtype, wavelet, levels, scheme, optimize, backend,
               fuse, boundary, compute_dtype, tap_opt, tiles, device,
               packet=None, ndim=2):
     from repro_torch import engine as E  # deferred: core <-> engine
-    return E.get_plan(wavelet=wavelet, scheme=scheme, levels=levels,
-                      shape=tuple(shape), dtype=_dtype_name(dtype),
-                      backend=backend, optimize=optimize, fuse=fuse,
-                      boundary=boundary, compute_dtype=compute_dtype,
-                      tap_opt=tap_opt, tiles=tiles, device=device,
-                      packet=packet, ndim=ndim)
+    with T.span("plan.lookup"):
+        return E.get_plan(wavelet=wavelet, scheme=scheme, levels=levels,
+                          shape=tuple(shape), dtype=_dtype_name(dtype),
+                          backend=backend, optimize=optimize, fuse=fuse,
+                          boundary=boundary, compute_dtype=compute_dtype,
+                          tap_opt=tap_opt, tiles=tiles, device=device,
+                          packet=packet, ndim=ndim)
 
 
 def _device(device):
@@ -163,13 +165,14 @@ def dwt2(x, wavelet: str = "cdf97", levels: int = 1,
     >>> pyr.levels, tuple(pyr.ll.shape)
     (2, (2, 4, 4))
     """
-    dev = _device(device)
-    x = _on(x, dev)
-    validate_finite(x, validate, what="dwt2 input")
-    plan = _plan_for(x.shape, x.dtype, wavelet, levels, scheme, optimize,
-                     backend, fuse, boundary, compute_dtype, tap_opt, tiles,
-                     dev)
-    return plan.execute(x)
+    with T.span("call.dwt2"):
+        dev = _device(device)
+        x = _on(x, dev)
+        validate_finite(x, validate, what="dwt2 input")
+        plan = _plan_for(x.shape, x.dtype, wavelet, levels, scheme,
+                         optimize, backend, fuse, boundary, compute_dtype,
+                         tap_opt, tiles, dev)
+        return plan.execute(x)
 
 
 def idwt2(pyr: Pyramid, wavelet: str = "cdf97",
@@ -191,19 +194,20 @@ def idwt2(pyr: Pyramid, wavelet: str = "cdf97",
     >>> bool(torch.allclose(rec, x, atol=1e-3))
     True
     """
-    dev = _device(device)
-    pyr = Pyramid(ll=_on(pyr.ll, dev),
-                  details=[tuple(_on(d, dev) for d in det)
-                           for det in pyr.details])
-    validate_finite(pyr, validate, what="idwt2 input pyramid")
-    ll = pyr.ll
-    levels = pyr.levels
-    shape = tuple(ll.shape[:-2]) + (ll.shape[-2] << levels,
-                                    ll.shape[-1] << levels)
-    plan = _plan_for(shape, ll.dtype, wavelet, levels, scheme, optimize,
-                     backend, fuse, boundary, compute_dtype, tap_opt, tiles,
-                     dev)
-    return plan.execute_inverse(pyr)
+    with T.span("call.idwt2"):
+        dev = _device(device)
+        pyr = Pyramid(ll=_on(pyr.ll, dev),
+                      details=[tuple(_on(d, dev) for d in det)
+                               for det in pyr.details])
+        validate_finite(pyr, validate, what="idwt2 input pyramid")
+        ll = pyr.ll
+        levels = pyr.levels
+        shape = tuple(ll.shape[:-2]) + (ll.shape[-2] << levels,
+                                        ll.shape[-1] << levels)
+        plan = _plan_for(shape, ll.dtype, wavelet, levels, scheme,
+                         optimize, backend, fuse, boundary, compute_dtype,
+                         tap_opt, tiles, dev)
+        return plan.execute_inverse(pyr)
 
 
 def wpt2(x, wavelet: str = "cdf97", packet="full:2",
@@ -351,13 +355,14 @@ def dwt3(x, wavelet: str = "cdf97", levels: int = 1,
     >>> bool(torch.allclose(rec, vid, atol=1e-4))
     True
     """
-    dev = _device(device)
-    x = _on(x, dev)
-    validate_finite(x, validate, what="dwt3 input")
-    plan = _plan_for(x.shape, x.dtype, wavelet, levels, scheme, optimize,
-                     backend, fuse, boundary, compute_dtype, tap_opt, None,
-                     dev, ndim=3)
-    return plan.execute(x)
+    with T.span("call.dwt3"):
+        dev = _device(device)
+        x = _on(x, dev)
+        validate_finite(x, validate, what="dwt3 input")
+        plan = _plan_for(x.shape, x.dtype, wavelet, levels, scheme, optimize,
+                         backend, fuse, boundary, compute_dtype, tap_opt, None,
+                         dev, ndim=3)
+        return plan.execute(x)
 
 
 def idwt3(pyr: Pyramid3, wavelet: str = "cdf97",
@@ -369,20 +374,21 @@ def idwt3(pyr: Pyramid3, wavelet: str = "cdf97",
     """Inverse of :func:`dwt3` (pass the same ``wavelet`` / ``scheme``
     / backend arguments as the forward call).  The subbands are moved to
     ``device``."""
-    dev = _device(device)
-    pyr = Pyramid3(ll=_on(pyr.ll, dev),
-                   details=[tuple(_on(d, dev) for d in det)
-                            for det in pyr.details])
-    validate_finite(pyr, validate, what="idwt3 input pyramid")
-    ll = pyr.ll
-    levels = pyr.levels
-    shape = tuple(ll.shape[:-3]) + (ll.shape[-3] << levels,
-                                    ll.shape[-2] << levels,
-                                    ll.shape[-1] << levels)
-    plan = _plan_for(shape, ll.dtype, wavelet, levels, scheme, optimize,
-                     backend, fuse, boundary, compute_dtype, tap_opt, None,
-                     dev, ndim=3)
-    return plan.execute_inverse(pyr)
+    with T.span("call.idwt3"):
+        dev = _device(device)
+        pyr = Pyramid3(ll=_on(pyr.ll, dev),
+                       details=[tuple(_on(d, dev) for d in det)
+                                for det in pyr.details])
+        validate_finite(pyr, validate, what="idwt3 input pyramid")
+        ll = pyr.ll
+        levels = pyr.levels
+        shape = tuple(ll.shape[:-3]) + (ll.shape[-3] << levels,
+                                        ll.shape[-2] << levels,
+                                        ll.shape[-1] << levels)
+        plan = _plan_for(shape, ll.dtype, wavelet, levels, scheme, optimize,
+                         backend, fuse, boundary, compute_dtype, tap_opt, None,
+                         dev, ndim=3)
+        return plan.execute_inverse(pyr)
 
 
 def flatten_pyramid(pyr: Pyramid) -> torch.Tensor:

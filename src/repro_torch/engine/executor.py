@@ -92,7 +92,12 @@ def cuda_level_forward(x, spec, key):
 def cuda_level_inverse(planes, spec, key):
     planes = PP.apply_steps_cuda(spec.inv_steps, planes,
                                  windows=spec.inv_windows)
-    return S.from_planes(planes)
+    # the merge, inside its span, counting what its stacks write: twice
+    # the image (the two half interleaves, then the whole)
+    with T.device_span("planes.merge", key.device):
+        x = S.from_planes(planes)
+    PP.MERGE_BYTES.inc(2 * x.numel() * x.element_size())
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +191,8 @@ def make_dwt3_forward(plan, backend):
         for spec in specs:
             with T.device_span("level3.forward", key.device,
                                level=spec.index, backend=backend.name):
-                lo, hi = TP.temporal_forward(v, prog, cdt)
+                with T.device_span("temporal.forward", key.device):
+                    lo, hi = TP.temporal_forward(v, prog, cdt)
                 v, hl0, lh0, hh0 = backend.level_forward(lo, spec, key)
                 llh, hlh, lhh, hhh = backend.level_forward(hi, spec, key)
             details.append((hl0, lh0, hh0, llh, hlh, lhh, hhh))
@@ -210,7 +216,8 @@ def make_dwt3_inverse(plan, backend):
                                level=spec.index, backend=backend.name):
                 lo = backend.level_inverse((v, hl0, lh0, hh0), spec, key)
                 hi = backend.level_inverse((llh, hlh, lhh, hhh), spec, key)
-                v = TP.temporal_inverse(lo, hi, prog, cdt)
+                with T.device_span("temporal.inverse", key.device):
+                    v = TP.temporal_inverse(lo, hi, prog, cdt)
         return v
 
     return run

@@ -23,8 +23,21 @@ import dataclasses
 import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+from repro_torch import telemetry as T
 from repro_torch.core import optimize as O
 from repro_torch.core import poly as P
+
+#: bytes the plane copies around the window kernel write, per site:
+#: ``split`` where a level's polyphase planes (strided views of its
+#: image) are made contiguous for K1, ``merge`` where a K1 level inverse
+#: interleaves its four planes back into an image
+#: (:func:`repro_torch.engine.executor.cuda_level_inverse`)
+PLANE_COPY_BYTES = T.counter(
+    "repro_plane_copy_bytes_total",
+    "bytes written by the plane copies around the window kernel",
+    labelnames=("op",))
+SPLIT_BYTES = PLANE_COPY_BYTES.bind(op="split")
+MERGE_BYTES = PLANE_COPY_BYTES.bind(op="merge")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,7 +260,12 @@ def apply_steps_cuda(steps: Sequence[StepSpec], planes, *,
         windows = tuple(TW.encode(p, block, compute_dtype)
                         for p in programs)
     batch = planes[0].shape[:-2]
-    p3 = [p.reshape((-1,) + p.shape[-2:]).contiguous() for p in planes]
+    with T.device_span("planes.split", planes[0].device):
+        p3 = [p.reshape((-1,) + p.shape[-2:]).contiguous() for p in planes]
+    copied = sum(q.numel() * q.element_size() for p, q in zip(planes, p3)
+                 if q.data_ptr() != p.data_ptr())
+    if copied:
+        SPLIT_BYTES.inc(copied)
     for win in windows:
         p3 = TW.tap_window(win, p3)
     return tuple(p.reshape(batch + p.shape[-2:]) for p in p3)

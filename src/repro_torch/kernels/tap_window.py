@@ -63,6 +63,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry as T
 from repro_torch.compiler import ir
 from repro_torch.compiler.execute import required_margins, run_window
 from repro_torch.core.schemes import coef
@@ -547,21 +548,39 @@ class KernelLibrary:
                                f"({msg})")
 
 
+#: launches of the hand-written kernels, one series per kernel; like the
+#: engine's record of what it did, it counts in every telemetry mode
+LAUNCHES = T.counter(
+    "repro_kernel_launches_total",
+    "launches of the hand-written CUDA kernels (tap_window = K1, "
+    "pyramid_forward = K2, pyramid_inverse = K3)",
+    labelnames=("kernel",), gated=False)
+
+
 class Kernel:
     """One kernel of a :class:`KernelLibrary` and its launch counter.
 
-    ``launches`` counts kernel launches and nothing else: the plain
-    version (CPU tensors) never touches it.  It counts exactly when
-    several threads launch (a server's workers).
+    ``launches`` is a view of the kernel's series of
+    ``repro_kernel_launches_total``: reading it reads the series,
+    assigning to it sets the series (a reset).  It counts kernel launches
+    and nothing else: the plain version (CPU tensors) never touches it.
+    It counts exactly when several threads launch (a server's workers).
     """
 
     def __init__(self, name: str, library: KernelLibrary):
         self.name = name
         self.lib = library
-        self.launches = 0
+        self._launches = LAUNCHES.bind(kernel=name)
         #: (grid, resident blocks per SM) of the last launch
         self.last_grid: Tuple[int, int] = (0, 0)
-        self._lock = threading.Lock()
+
+    @property
+    def launches(self) -> int:
+        return int(self._launches.value())
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._launches.force_set(n)
 
     def library(self):
         return self.lib.library()
@@ -569,9 +588,8 @@ class Kernel:
     def launched(self, info) -> None:
         """Count one launch; ``info`` is the (grid, blocks per SM) pair
         the launch function wrote."""
-        with self._lock:
-            self.launches += 1
-            self.last_grid = (int(info[0]), int(info[1]))
+        self._launches.inc()
+        self.last_grid = (int(info[0]), int(info[1]))
 
 
 def _bind(lib) -> None:

@@ -14,8 +14,9 @@ The reference package's telemetry plane, in PyTorch (see
   span("plan.build", scheme=...):`` nested timed spans with ids and
   parents in a bounded ring, exported as Perfetto-loadable Chrome-trace
   JSON (:func:`repro_torch.telemetry.export.chrome_trace`); spans around
-  device work are timed on the card with CUDA events, and may be
-  mirrored into ``torch.profiler.record_function`` ranges;
+  device work are timed on the card with CUDA events, and every span is
+  a range of its name in a ``torch.profiler`` trace while a profiler
+  session records;
 * **attribution** (:mod:`repro_torch.telemetry.attribution`) — measured
   span time joined with the modelled device-memory bytes and compiled
   MACs into achieved-GB/s / achieved-MACs/s gauges (a live roofline).
@@ -37,8 +38,7 @@ from repro_torch.telemetry.attribution import (clear_pending,
                                                record_execution, record_span,
                                                resolve_pending, roofline)
 from repro_torch.telemetry.config import (CONFIG, DEFAULT_MODE, MODE_ENV,
-                                          MODES, PROFILER_ANNOTATIONS_ENV,
-                                          mode, reload, set_mode)
+                                          MODES, mode, reload, set_mode)
 from repro_torch.telemetry.export import (chrome_trace, parse_prometheus_text,
                                           prometheus_text, write_chrome_trace)
 from repro_torch.telemetry.registry import (DEFAULT_BUCKETS, MAX_SERIES,
@@ -52,7 +52,7 @@ from repro_torch.telemetry.spans import (NOOP_SPAN, TRACER, SpanRecord,
 __all__ = [
     # config
     "mode", "set_mode", "reload", "MODES", "MODE_ENV", "DEFAULT_MODE",
-    "PROFILER_ANNOTATIONS_ENV", "CONFIG",
+    "CONFIG",
     # registry
     "REGISTRY", "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "CounterAlias", "MAX_SERIES", "DEFAULT_BUCKETS",

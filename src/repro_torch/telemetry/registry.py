@@ -137,6 +137,45 @@ class Counter(Metric):
             if k is not None:
                 self._series[k] = v
 
+    def bind(self, **labels) -> "BoundCounter":
+        """The one series of ``labels``, its key resolved now: what a hot
+        site holds, so that each increment is one locked add."""
+        with self._registry._lock:
+            return BoundCounter(self, self._key(labels))
+
+
+class BoundCounter:
+    """One series of a :class:`Counter` with its label key resolved
+    (:meth:`Counter.bind`): no label check or sort per increment.  A
+    series the cap dropped at binding stays dropped."""
+
+    __slots__ = ("_counter", "_key")
+
+    def __init__(self, counter: Counter, key: Optional[LabelsKey]):
+        self._counter = counter
+        self._key = key
+
+    def inc(self, n: float = 1) -> None:
+        c, k = self._counter, self._key
+        if k is None or (c.gated and not CONFIG.counters_on):
+            return
+        with c._registry._lock:
+            c._series[k] = c._series.get(k, 0) + n
+
+    def value(self) -> float:
+        c = self._counter
+        with c._registry._lock:
+            v = c._series.get(self._key)
+            return float(v) if v is not None else 0.0
+
+    def force_set(self, v: float) -> None:
+        """Set the series total, regardless of telemetry mode (a caller
+        that resets or seeds the count)."""
+        c = self._counter
+        if self._key is not None:
+            with c._registry._lock:
+                c._series[self._key] = v
+
 
 class Gauge(Metric):
     """Last-write-wins instantaneous value (Prometheus gauge)."""

@@ -26,18 +26,28 @@ them when the roofline or an export is read; the ring's records are
 resolved when the ring is read.  On the CPU the same spans time the
 host.
 
+**On the profiler's clock.**  While a ``torch.profiler`` session
+records, every span in every mode but ``off`` is also a range of its
+name in the profiler's trace, around the kernels it launches and on one
+clock with them: a gap on the card's timeline is named by the innermost
+span under way on the host.  In ``spans`` mode the range is a
+``torch.profiler.record_function`` (a user annotation, projected onto
+the card's timeline too).  In ``counters`` mode the range is all a span
+does, and it is the profiler's own C++ record function (a host operation
+of the span's name in the trace): ``record_function`` is a pair of
+dispatched operators, which the profiler records as operations of their
+own, and costs about eight times as much there.
+
 Overhead discipline:
 
-* spans only record under ``REPRO_TORCH_TELEMETRY=spans``; otherwise
-  :func:`span` / :func:`device_span` return one shared no-op context
-  manager — the cost of an instrument site is a branch and a constant
-  return; no event is recorded and nothing waits for the device;
+* spans only record under ``REPRO_TORCH_TELEMETRY=spans``; otherwise,
+  with no profiler session recording, :func:`span` / :func:`device_span`
+  return one shared no-op context manager — the cost of an instrument
+  site is a branch, one flag read and a constant return; no event is
+  recorded and nothing waits for the device;
 * a span opened while ``torch.compile`` traces is also a no-op: a
   trace-time measurement would time compilation once and then never
-  fire again;
-* with ``$REPRO_TORCH_TELEMETRY_PROFILER=1`` every real span also enters
-  a ``torch.profiler.record_function`` range, so the same names show up
-  in ``torch.profiler`` traces around the kernels they launch.
+  fire again.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from collections import deque
 from typing import List, Optional
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from repro_torch.telemetry.config import CONFIG
 
@@ -172,7 +183,8 @@ def _compiling() -> bool:
 
 
 class _NoopSpan:
-    """Shared do-nothing span (mode off/counters, or under tracing)."""
+    """Shared do-nothing span (mode off, counters with no profiler
+    session recording, or under tracing)."""
 
     __slots__ = ()
     duration: Optional[float] = None
@@ -186,6 +198,32 @@ class _NoopSpan:
 
 
 NOOP_SPAN = _NoopSpan()
+
+
+#: the profiler's own record function, where this torch has it
+_FAST_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+
+
+class _RangeSpan:
+    """A span outside ``spans`` mode while a profiler session records:
+    a range of its name in the trace and nothing else (no CUDA event, no
+    ring record)."""
+
+    __slots__ = ("_range",)
+    duration: Optional[float] = None
+    record: Optional["SpanRecord"] = None
+
+    def __init__(self, name: str):
+        self._range = _FAST_RANGE(name) if _FAST_RANGE is not None \
+            else torch.profiler.record_function(name)
+
+    def __enter__(self) -> "_RangeSpan":
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._range.__exit__(*exc)
+        return False
 
 
 class _ActiveSpan:
@@ -222,7 +260,7 @@ class _ActiveSpan:
         parent = _CURRENT.get()
         self.parent_id = parent.span_id if parent is not None else None
         self._token = _CURRENT.set(self)
-        if CONFIG.profiler_annotations:
+        if _profiler._is_profiler_enabled:
             self._prof_ctx = torch.profiler.record_function(self.name)
             self._prof_ctx.__enter__()
         self.start_s = time.perf_counter()
@@ -251,29 +289,39 @@ class _ActiveSpan:
 def span(name: str, **labels):
     """Open one host-timed span (a context manager).
 
-    No-op unless ``REPRO_TORCH_TELEMETRY=spans`` and ``torch.compile`` is
-    not tracing; labels become the span's Perfetto ``args`` and the
-    grouping keys of :func:`span_summary`.
+    Records under ``REPRO_TORCH_TELEMETRY=spans``; in ``counters`` mode
+    it is only a profiler range while a profiler session records, and a
+    no-op otherwise, as it is under ``off`` and while ``torch.compile``
+    traces.  Labels become the span's Perfetto ``args`` and the grouping
+    keys of :func:`span_summary`.
 
         with span("plan.build", backend="cuda", scheme="ns-polyconv"):
             plan = build_plan(key)
     """
-    if not CONFIG.spans_on or _compiling():
-        return NOOP_SPAN
-    return _ActiveSpan(name, labels)
+    if CONFIG.spans_on:
+        return NOOP_SPAN if _compiling() else _ActiveSpan(name, labels)
+    if _profiler._is_profiler_enabled and CONFIG.counters_on \
+            and not _compiling():
+        return _RangeSpan(name)
+    return NOOP_SPAN
 
 
 def device_span(name: str, device, **labels):
     """Open one span around work that runs on ``device`` (a plan's
     device string or a ``torch.device``): timed on the card between two
     CUDA events of the device's current stream when ``device`` is a CUDA
-    device, on the host otherwise.  A no-op outside ``spans`` mode, like
-    :func:`span`.
+    device, on the host otherwise.  Outside ``spans`` mode it is what
+    :func:`span` is there.
 
         with device_span("execute.forward", plan.key.device, fuse="levels"):
             out = plan._forward(x)
     """
-    if not CONFIG.spans_on or _compiling():
+    if not CONFIG.spans_on:
+        if _profiler._is_profiler_enabled and CONFIG.counters_on \
+                and not _compiling():
+            return _RangeSpan(name)
+        return NOOP_SPAN
+    if _compiling():
         return NOOP_SPAN
     dev = torch.device(device)
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None

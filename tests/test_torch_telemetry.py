@@ -36,13 +36,13 @@ BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda", "xla": "conv"}
 def _port_planes():
     """The port's telemetry and fault planes, isolated per test (the
     reference's are isolated by tests/conftest.py)."""
-    prev_mode, prev_prof = T.mode(), T.CONFIG.profiler_annotations
+    prev_mode = T.mode()
     prev_plan = PFJ.activate(None)
     T.set_mode("counters")
     T.reset()
     yield
     PFJ.activate(prev_plan)
-    T.CONFIG.apply(prev_mode, prev_prof)
+    T.CONFIG.apply(prev_mode)
     T.reset()
 
 
@@ -357,16 +357,79 @@ def test_spans_are_noops_while_torch_compile_traces(monkeypatch):
 
 
 def test_profiler_mirror_annotates_torch_profiler():
-    """With the profiler mirror on, every span is a record_function range
-    in a torch.profiler trace."""
-    T.CONFIG.apply("spans", True)
-    x = torch.from_numpy(_img((2, 32, 32)))
-    R.dwt2(x, levels=2, fuse="levels", backend="cuda", device="cpu")
+    """While a torch.profiler session records, every span is a range of
+    its name in its trace, in counters mode too, nested as the calls
+    nest; with none recording a span is the shared no-op."""
     from torch.profiler import ProfilerActivity, profile
+    assert T.mode() == "counters"
+    assert T.span("call.dwt3") is T.NOOP_SPAN
+    assert T.device_span("temporal.forward", "cpu") is T.NOOP_SPAN
+    x = torch.from_numpy(_img((8, 16, 16)))
+    R.dwt3(x, levels=2, device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        R.dwt2(x, levels=2, fuse="levels", backend="cuda", device="cpu")
-    names = {e.key for e in prof.key_averages()}
-    assert {"execute.forward", "level.forward"} <= names
+        assert T.span("call.dwt3") is not T.NOOP_SPAN
+        R.dwt3(x, levels=2, device="cpu")
+    assert T.span("call.dwt3") is T.NOOP_SPAN
+    assert T.TRACER.records() == []
+    ranges = {}
+    for e in prof.events():
+        if "::" not in e.name:
+            ranges.setdefault(e.name, []).append(
+                (e.thread, e.time_range.start, e.time_range.end))
+
+    def nests(inner, outer):
+        return ranges.get(inner) and all(
+            any(t == u and a <= b0 and b1 <= b
+                for u, a, b in ranges[outer])
+            for t, b0, b1 in ranges[inner])
+
+    assert nests("plan.lookup", "call.dwt3")
+    assert nests("execute.forward", "call.dwt3")
+    assert nests("level3.forward", "execute.forward")
+    assert nests("temporal.forward", "level3.forward")
+    assert nests("planes.split", "level3.forward")
+    assert len(ranges["level3.forward"]) == 2
+
+
+def test_plane_copy_bytes_count_what_the_copies_write():
+    """repro_plane_copy_bytes_total: a forward level's split writes its
+    image once; an inverse level's planes are contiguous already, so it
+    splits nothing, and its merge writes the image twice."""
+    from repro_torch.kernels import polyphase as PP
+    x = torch.from_numpy(_img((2, 32, 32)))
+    pyr = R.dwt2(x, levels=2, backend="cuda", device="cpu")
+    image = (2 * 32 * 32 + 2 * 16 * 16) * 4
+    assert PP.PLANE_COPY_BYTES.value(op="split") == image
+    assert PP.PLANE_COPY_BYTES.value(op="merge") == 0
+    R.idwt2(pyr, backend="cuda", device="cpu")
+    assert PP.PLANE_COPY_BYTES.value(op="split") == image
+    assert PP.PLANE_COPY_BYTES.value(op="merge") == 2 * image
+    planes = tuple(torch.zeros(2, 8, 8) for _ in range(4))
+    spec = TE.get_plan(shape=(2, 16, 16), levels=1, backend="cuda",
+                       device="cpu").level_specs[0]
+    PP.apply_steps_cuda(spec.fwd_steps, planes, windows=spec.fwd_windows)
+    assert PP.PLANE_COPY_BYTES.value(op="split") == image
+
+
+def test_kernel_launches_are_a_view_of_the_registry_series():
+    """Kernel.launches reads repro_kernel_launches_total{kernel} and an
+    assignment sets it; it counts in every mode, and T.reset() zeroes
+    it."""
+    from repro_torch.kernels import tap_window as TW
+    k = TW.KERNEL
+    k.launches = 0
+    k.launched((132, 3))
+    assert k.launches == 1 and k.last_grid == (132, 3)
+    assert TW.LAUNCHES.value(kernel="tap_window") == 1
+    TW.LAUNCHES.inc(2, kernel="tap_window")
+    assert k.launches == 3
+    k.launches = 0
+    assert TW.LAUNCHES.value(kernel="tap_window") == 0
+    T.set_mode("off")
+    k.launched((1, 1))
+    assert k.launches == 1
+    T.reset()
+    assert k.launches == 0
 
 
 # -- mode gating -------------------------------------------------------
@@ -460,24 +523,21 @@ def test_record_span_waits_for_the_card_only_when_read():
 
 def test_mode_env_reload(monkeypatch):
     monkeypatch.setenv(T.MODE_ENV, "spans")
-    monkeypatch.setenv(T.PROFILER_ANNOTATIONS_ENV, "1")
     T.reload()
     assert T.mode() == "spans" and T.CONFIG.spans_on
-    assert T.CONFIG.profiler_annotations
     monkeypatch.setenv(T.MODE_ENV, "bogus")
     with pytest.raises(ValueError, match="bogus"):
         T.reload()
     monkeypatch.delenv(T.MODE_ENV)
-    monkeypatch.delenv(T.PROFILER_ANNOTATIONS_ENV)
     T.reload()
-    assert T.mode() == T.DEFAULT_MODE and not T.CONFIG.profiler_annotations
+    assert T.mode() == T.DEFAULT_MODE and not T.CONFIG.spans_on
 
 
 def test_env_names_carry_the_port_prefix():
     """One process may hold both packages: their switches must differ."""
     from repro_torch.faults import degrade, plan
     from repro_torch.telemetry import spans
-    names = [T.MODE_ENV, T.PROFILER_ANNOTATIONS_ENV, spans.RING_ENV,
+    names = [T.MODE_ENV, spans.RING_ENV,
              plan.FAULTS_ENV, plan.SEED_ENV, degrade.ENABLE_ENV,
              degrade.RETRIES_ENV, degrade.VERIFY_ENV]
     assert all(n.startswith("REPRO_TORCH_") for n in names)
