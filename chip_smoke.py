@@ -7,8 +7,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build   — builds ``src/repro_torch/csrc/tap_window.cu`` (the window
-             kernel K1) and ``pyramid_window.cu`` (the fused-pyramid
-             kernels K2/K3) with nvcc for sm_90a, both at once, and prints
+             kernel K1), ``pyramid_window.cu`` (the fused-pyramid
+             kernels K2/K3) and ``temporal_lift.cu`` (the 3-D transform's
+             temporal pass) with nvcc for sm_90a, all at once, and prints
              the build times and the ``-Xptxas -v`` registers and spills;
 2. kernel  — each kernel against its plain version on the same CUDA
              tensors: K1 (``tap_window_ref``) for every wavelet x scheme x
@@ -21,6 +22,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
              plan's guard picks.  float32 must agree bit for bit
              (max |diff| = 0), float16/bfloat16 I/O and bfloat16 compute
              within the bounds below (the largest |diff| is printed);
+2c. temporal — the temporal lifting kernel against the plain pass
+             (``compiler/temporal.py``) for every wavelet, forward and
+             inverse, float32/float16/bfloat16 I/O with float32 and
+             bfloat16 compute, T of 2, 4, 466 and 1864 frames, planes
+             with W not a multiple of 4, batch dims, a strided view
+             along T and a transposed plane (launched on a contiguous
+             copy): max |diff| 0 in every dtype (the same arithmetic);
+             then the same comparison and its time at the volume cell's
+             level-0 shape (1864x512x512 float32, 9/7), forward and
+             inverse, beside its bytes bound and the plain pass's time;
 3. main    — ``repro_torch.dwt2`` / ``idwt2`` at B=8, 2048x2048, float32,
              3 levels, cdf97 on backend "cuda": ns-polyconv at fuse
              "none", "scheme", "levels" and "pyramid", sep-lifting at
@@ -41,8 +52,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              "full:2" at B=8, 2048x2048 (ns-polyconv, backend "cuda",
              fuse "none" and "levels": 10 and 5 K1 launches per
              transform); ``dwt3``/``idwt3`` of a 1x64x1024x1024 volume at
-             3 levels (12 and 6; ``plan.fallback`` names the unfused
-             temporal pass); ``dwt2``/``idwt2`` of the main path on
+             3 levels (12 and 6, and 3 temporal lifting launches;
+             ``plan.fallback`` names the unfused temporal pass);
+             ``dwt2``/``idwt2`` of the main path on
              backend "conv" (ns-polyconv "none" and "levels",
              sep-lifting "none": 6, 3 and 24 ``F.conv2d`` calls), run
              before phase 4 turns TF32 off and checked to leave cuDNN's
@@ -52,8 +64,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              bit; ``best_basis`` (depth 2, shannon) the same tree on
              "cuda" and "torch", and that tree round-trips.  Times
              (median of 5) beside backend "torch" (and, for the conv
-             path, "cuda"), ``temporal_forward`` alone at level 0, and
-             K1's launches per path;
+             path, "cuda"), the temporal pass alone at level 0 (kernel
+             and plain version), and K1's launches per path;
 3d. telemetry — the telemetry and fault planes at the main path's width
              (ns-polyconv "pyramid", "levels", "none"): in "spans" mode
              inside ``torch.profiler``, ``execute.*`` must hold one
@@ -294,10 +306,21 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 REPS = 7
 TPU_KERNELS = {"tap_window": "src/repro/kernels/polyphase.py:203",
                "pyramid_forward": "src/repro/kernels/polyphase.py:385",
-               "pyramid_inverse": "src/repro/kernels/polyphase.py:493"}
+               "pyramid_inverse": "src/repro/kernels/polyphase.py:493",
+               "temporal_lift": "none: the reference runs the pass as jnp "
+                                "between its Pallas kernels "
+                                "(src/repro/compiler/temporal.py)"}
 SOURCES = {"tap_window": "src/repro_torch/csrc/tap_window.cu",
            "pyramid_forward": "src/repro_torch/csrc/pyramid_window.cu",
-           "pyramid_inverse": "src/repro_torch/csrc/pyramid_window.cu"}
+           "pyramid_inverse": "src/repro_torch/csrc/pyramid_window.cu",
+           "temporal_lift": "src/repro_torch/csrc/temporal_lift.cu"}
+# phase 2c: the kernel's shapes (T of 2, 4, 466 and 1864; W not a
+# multiple of 4; batch dims) and its timing at the volume cell's level 0
+TEMPORAL_SHAPES = ((2, 5, 7), (3, 4, 6, 10), (466, 9, 13), (2, 1864, 3, 7))
+TEMPORAL_DTYPES = (("float32", "float32"), ("float16", "float32"),
+                   ("bfloat16", "float32"), ("float32", "bfloat16"),
+                   ("bfloat16", "bfloat16"), ("float16", "bfloat16"))
+TEMPORAL_TIMED = (1864, 512, 512)
 
 
 class SmokeFailure(RuntimeError):
@@ -375,12 +398,12 @@ def kernels(TW, PW):
             "pyramid_inverse": PW.INVERSE}
 
 
-def phase_build(TW, PW, cpu):
+def phase_build(TW, PW, TL, cpu):
     print("== phase 1: build", flush=True)
     if cpu:
         print("cpu rehearsal: kernels not built (no nvcc on this machine)")
         return
-    libs = (TW.LIBRARY, PW.LIBRARY)
+    libs = (TW.LIBRARY, PW.LIBRARY, TL.LIBRARY)
     errors = []
 
     def build(lib):
@@ -472,6 +495,93 @@ def phase_kernel(torch, C, TW, device, cpu, gen):
           f"{time.perf_counter() - t0:.1f} s: max |diff| float32 "
           f"{worst['float32']!r}, half-precision {worst['narrow']!r}")
     return worst["float32"]
+
+
+def phase_temporal_kernel(torch, TL, device, cpu, gen, timer):
+    """The temporal lifting kernel vs the plain pass, then its time at
+    the volume cell's level 0; returns its kernels-line entry (largest
+    |diff|, launches, times)."""
+    print("== phase 2c: temporal lifting kernel vs plain pass", flush=True)
+    from repro_torch.compiler import temporal as TP
+    worst, n_cases, launches = 0.0, 0, 0
+    t0 = time.perf_counter()
+    for wav, (io, cdt) in itertools.product(WAVELETS, TEMPORAL_DTYPES):
+        io, cdt = getattr(torch, io), getattr(torch, cdt)
+        fwd, inv = (TP.compile_temporal(wav, i) for i in (False, True))
+        vols = [torch.randn(s, generator=gen) for s in TEMPORAL_SHAPES]
+        vols.append(torch.randn((2, 932, 9, 13), generator=gen)[:, 1::2])
+        vols.append(torch.randn((6, 9, 13), generator=gen).mT)
+        for v in vols:
+            x = v.to(device=device, dtype=io)
+            before = TL.KERNEL.launches
+            lo, hi = TL.temporal_lift_forward(x, fwd, cdt)
+            back = TL.temporal_lift_inverse(lo, hi, inv, cdt)
+            want = TP.temporal_forward(x, fwd, cdt)
+            got_n = TL.KERNEL.launches - before
+            check(got_n == (0 if cpu else 2),
+                  f"temporal_lift launched {got_n} times for 2 calls")
+            launches += got_n
+            for g, w in ((lo, want[0]), (hi, want[1]),
+                         (back, TP.temporal_inverse(lo, hi, inv, cdt))):
+                check(g.dtype == w.dtype and g.shape == w.shape,
+                      f"temporal_lift output {g.dtype} {tuple(g.shape)} vs "
+                      f"plain {w.dtype} {tuple(w.shape)}")
+                d = max_abs(g, w)
+                worst = max(worst, d)
+                check(d == 0.0, f"temporal_lift disagrees with the plain "
+                                f"pass: max |diff| {d} ({wav}, "
+                                f"{tuple(x.shape)}, io {io}, compute {cdt})")
+            n_cases += 1
+    print(f"{n_cases} temporal kernel/plain comparisons (forward and "
+          f"inverse) in {time.perf_counter() - t0:.1f} s: max |diff| "
+          f"{worst!r}")
+    # its time at the volume cell's level 0 (9/7, float32)
+    shape = (4, 32, 32) if cpu else TEMPORAL_TIMED
+    fwd, inv = (TP.compile_temporal("cdf97", i) for i in (False, True))
+    x = torch.randn(shape, generator=gen).to(device)
+    before = TL.KERNEL.launches
+    lo, hi = TL.temporal_lift_forward(x, fwd)
+    back = TL.temporal_lift_inverse(lo, hi, inv)
+    launches += TL.KERNEL.launches - before
+    # the many-chunk, full-width case bit for bit before it is timed
+    want = TP.temporal_forward(x, fwd)
+    d = max(max_abs(lo, want[0]), max_abs(hi, want[1]))
+    del want
+    d = max(d, max_abs(back, TP.temporal_inverse(lo, hi, inv)))
+    del back
+    worst = max(worst, d)
+    check(d == 0.0, f"temporal_lift disagrees with the plain pass at "
+                    f"{tuple(shape)}: max |diff| {d}")
+    print(f"temporal_lift {'x'.join(map(str, shape))} cdf97 float32 "
+          f"forward and inverse vs the plain pass: max |diff| {d!r}")
+    nbytes = 2 * x.numel() * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {}
+    for op, run, plain in (
+            ("forward", lambda: TL.temporal_lift_forward(x, fwd),
+             lambda: TP.temporal_forward(x, fwd)),
+            ("inverse", lambda: TL.temporal_lift_inverse(lo, hi, inv),
+             lambda: TP.temporal_inverse(lo, hi, inv))):
+        before = TL.KERNEL.launches
+        k_ms = timer.ms(run)
+        launches += TL.KERNEL.launches - before
+        grid, per_sm = TL.KERNEL.last_grid
+        p_ms = timer.ms(plain, reps=5, warmup=1)
+        row[op] = (k_ms, p_ms)
+        print(f"temporal_lift {op} {'x'.join(map(str, shape))} cdf97 "
+              f"float32: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} "
+              f"GB/s, {bound / k_ms:.4f} of the bound {bound:.4f} ms, "
+              f"bytes), plain {p_ms:.4f} ms, chunks "
+              f"{TL.encode(fwd).chunking(shape[0] // 2)}, grid {grid}, "
+              f"{per_sm} blocks per SM")
+    del x, lo, hi
+    return dict(max_abs_err=worst, launches=launches,
+                entry=dict(ms=row["forward"][0],
+                           inverse_ms=row["inverse"][0],
+                           plain_ms=row["forward"][1],
+                           plain_inverse_ms=row["inverse"][1],
+                           bound_ms=bound, bound_by="bytes",
+                           library_ms=None))
 
 
 def phase_pyramid_kernel(torch, R, PW, device, cpu, gen):
@@ -719,15 +829,17 @@ def phase_workloads(torch, R, TW, PW, CV, device, cpu, gen, x, timer):
     launches summed over the packet and 3-D paths."""
     print("== phase 3c: packets, 3-D and the conv backend", flush=True)
     from repro_torch.compiler import temporal as TP
+    from repro_torch.kernels import temporal_lift as TL
     wav = MAIN["wavelet"]
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
     counters = kernels(TW, PW)
-    per_path = {}
+    per_path, per_temporal = {}, {}
 
-    def counted(name, run_fwd, run_inv, plan):
+    def counted(name, run_fwd, run_inv, plan, temporal=0):
         """Run one path forward then inverse with every counter at 0;
-        check K1's launches against ``plan.launches``."""
-        for k in counters.values():
+        check K1's launches against ``plan.launches`` and the temporal
+        lifting kernel's against ``temporal`` per direction."""
+        for k in (*counters.values(), TL.KERNEL):
             k.launches = 0
         out = run_fwd()
         n_fwd = TW.KERNEL.launches
@@ -738,11 +850,14 @@ def phase_workloads(torch, R, TW, PW, CV, device, cpu, gen, x, timer):
             others = {n: k.launches for n, k in counters.items()
                       if n != "tap_window"}
             check(n_fwd == plan.launches and n_all == 2 * plan.launches
-                  and not any(others.values()),
+                  and not any(others.values())
+                  and TL.KERNEL.launches == 2 * temporal,
                   f"{name}: counted {n_fwd} forward / {n_all - n_fwd} "
-                  f"inverse K1 launches (others {others}), plan says "
-                  f"{plan.launches}")
+                  f"inverse K1 launches (others {others}, temporal_lift "
+                  f"{TL.KERNEL.launches}), plan says {plan.launches} and "
+                  f"{temporal} temporal a direction")
         per_path[name] = n_all
+        per_temporal[name] = TL.KERNEL.launches
         return out, rec
 
     def held(name, out, ref, rec, orig):
@@ -819,7 +934,8 @@ def phase_workloads(torch, R, TW, PW, CV, device, cpu, gen, x, timer):
             f"dwt3/idwt3 {fuse}",
             lambda: R.dwt3(vol, fuse=fuse, backend="cuda", **kw3),
             lambda out: R.idwt3(out, fuse=fuse, backend="cuda",
-                                wavelet=wav, device=device), plan)
+                                wavelet=wav, device=device), plan,
+            temporal=L3)
         check(len(p3.details) == L3 and all(len(d) == 7 for d in p3.details),
               "dwt3: 7 subbands per level")
         held(f"dwt3 {fuse}", p3, R.dwt3(vol, fuse=fuse, backend="torch",
@@ -909,16 +1025,22 @@ def phase_workloads(torch, R, TW, PW, CV, device, cpu, gen, x, timer):
     fprog = TP.compile_temporal(wav)
     iprog = TP.compile_temporal(wav, inverse=True)
     lo, hi = TP.temporal_forward(vol, fprog)
-    t_fwd = timer.ms(lambda: TP.temporal_forward(vol, fprog), reps=5,
-                     warmup=1)
-    t_inv = timer.ms(lambda: TP.temporal_inverse(lo, hi, iprog), reps=5,
-                     warmup=1)
     f3, i3 = d3[("cuda", "levels")]
-    print(f"temporal pass at level 0 of {shape3}: forward {t_fwd:.4f} ms "
-          f"({t_fwd / f3:.4f} of dwt3 cuda/levels {f3:.4f} ms), inverse "
-          f"{t_inv:.4f} ms ({t_inv / i3:.4f} of idwt3 {i3:.4f} ms)")
+    for what, fwd, inv in (
+            ("kernel", lambda: TL.temporal_lift_forward(vol, fprog),
+             lambda: TL.temporal_lift_inverse(lo, hi, iprog)),
+            ("plain", lambda: TP.temporal_forward(vol, fprog),
+             lambda: TP.temporal_inverse(lo, hi, iprog))):
+        t_fwd = timer.ms(fwd, reps=5, warmup=1)
+        t_inv = timer.ms(inv, reps=5, warmup=1)
+        print(f"temporal pass ({what}) at level 0 of {shape3}: forward "
+              f"{t_fwd:.4f} ms ({t_fwd / f3:.4f} of dwt3 cuda/levels "
+              f"{f3:.4f} ms), inverse {t_inv:.4f} ms ({t_inv / i3:.4f} of "
+              f"idwt3 {i3:.4f} ms)")
     del xp, vol, lo, hi
-    return sum(per_path.values())
+    print(f"temporal lifting launches per path (forward + inverse): "
+          f"{ {k: v for k, v in per_temporal.items() if v} }")
+    return sum(per_path.values()), sum(per_temporal.values())
 
 
 SPAN_NAMES = ("execute.forward", "execute.inverse", "pyramid.launch",
@@ -3697,6 +3819,7 @@ def main(argv=None):
     from repro_torch.kernels import polyphase as PP
     from repro_torch.kernels import pyramid_window as PW
     from repro_torch.kernels import tap_window as TW
+    from repro_torch.kernels import temporal_lift as TL
     # the checks below read the defaults: counters on, the plane disarmed
     T.set_mode("counters")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -3708,18 +3831,22 @@ def main(argv=None):
           f" (importlib.util.find_spec)", flush=True)
     t_start = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
-    phase_build(TW, PW, cpu)
+    phase_build(TW, PW, TL, cpu)
     max_err = {"tap_window": phase_kernel(torch, C, TW, device, cpu, gen)}
     no_fallbacks("phase 2")
+    timer = Timer(torch, device)
+    temporal = phase_temporal_kernel(torch, TL, device, cpu, gen, timer)
+    max_err["temporal_lift"] = temporal["max_abs_err"]
+    no_fallbacks("phase 2c")
     worst = phase_pyramid_kernel(torch, R, PW, device, cpu, gen)
     max_err.update(pyramid_forward=worst["pyramid_forward"],
                    pyramid_inverse=worst["pyramid_inverse"])
     no_fallbacks("phase 2b")
     launched, plans, x = phase_main(torch, R, TW, PW, device, cpu, gen)
     no_fallbacks("phase 3")
-    timer = Timer(torch, device)
-    launched["tap_window"] += phase_workloads(torch, R, TW, PW, CV, device,
-                                              cpu, gen, x, timer)
+    n_k1, n_temporal = phase_workloads(torch, R, TW, PW, CV, device, cpu,
+                                       gen, x, timer)
+    launched["tap_window"] += n_k1
     no_fallbacks("phase 3c")
     if not cpu:
         want = {"tap_window": 2 * sum(
@@ -3754,6 +3881,9 @@ def main(argv=None):
         launched[name] += n
     no_fallbacks("phase 3j")
     entries = phase_times(torch, R, PP, TW, PW, CV, device, plans, x, timer)
+    entries["temporal_lift"] = temporal["entry"]
+    # the temporal kernel's launches counted in phases 2c and 3c
+    launched["temporal_lift"] = temporal["launches"] + n_temporal
     no_fallbacks("phase 4")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     card = "cpu rehearsal" if cpu else nvidia_smi()
@@ -3763,7 +3893,7 @@ def main(argv=None):
                          launches=launched[name], max_abs_err=max_err[name],
                          **entries[name])
                     for name in ("tap_window", "pyramid_forward",
-                                 "pyramid_inverse")]
+                                 "pyramid_inverse", "temporal_lift")]
     print(json.dumps({"kernels": kernels_line}))
     kind = "cpu" if cpu else torch.cuda.get_device_name(0)
     count = 0 if cpu else torch.cuda.device_count()

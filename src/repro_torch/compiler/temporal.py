@@ -10,10 +10,14 @@ with periodic ``torch.roll`` arithmetic — the same cyclic-boundary
 convention as the 2-D polyphase algebra, so ``boundary="periodic"``
 means the same thing on every axis.
 
-The pass is plain PyTorch on every backend, as the reference runs it as
-``jnp`` between its Pallas kernels.  Each tap is rounded to the compute
-dtype before it multiplies (:func:`~repro_torch.core.schemes.coef`), as
-the reference's ``jnp.asarray(c, compute_dtype)`` does.
+The functions here are the pass in plain PyTorch, as the reference runs
+it as ``jnp`` between its Pallas kernels: what the ``"torch"`` and
+``"conv"`` backends run, and the plain version of the ``"cuda"``
+backend's temporal lifting kernel (:mod:`repro_torch.kernels.
+temporal_lift`, one launch per level and direction), which equals them
+bit for bit.  Each tap is rounded to the compute dtype before it
+multiplies (:func:`~repro_torch.core.schemes.coef`), as the reference's
+``jnp.asarray(c, compute_dtype)`` does.
 
 The inverse applies the same taps negated, in reverse order, and undoes
 the scaling first: the round trip is exact up to the rounding of each

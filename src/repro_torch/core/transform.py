@@ -332,16 +332,17 @@ def dwt3(x, wavelet: str = "cdf97", levels: int = 1,
     ``(..., T, H, W)``.
 
     Each level lifts along the temporal axis (1-D periodic lifting of
-    the wavelet's predict/update pairs, plain PyTorch —
-    :mod:`repro_torch.compiler.temporal`) and transforms both temporal
-    half-bands with the 2-D level of the chosen backend (the T/2 frames
-    ride the leading batch dims; on "cuda", the window kernel's batch
-    grid dimension); only the tL·LL subband recurses.  T, H and W must
-    each be divisible by ``2**levels``.  On "cuda" the temporal pass
-    runs unfused between the kernel launches (recorded on
-    ``plan.fallback`` under ``fuse="levels"``).  ``fuse="pyramid"``
-    demotes to ``"levels"``: the fused-pyramid kernels are
-    2-D-pyramid-only.
+    the wavelet's predict/update pairs — :mod:`repro_torch.compiler.
+    temporal`; on "cuda" one launch of the temporal lifting kernel,
+    :mod:`repro_torch.kernels.temporal_lift`) and transforms both
+    temporal half-bands with the 2-D level of the chosen backend (the
+    T/2 frames ride the leading batch dims; on "cuda", the window
+    kernel's batch grid dimension); only the tL·LL subband recurses.
+    T, H and W must each be divisible by ``2**levels``.  On "cuda" the
+    temporal pass runs unfused between the window kernel's launches
+    (recorded on ``plan.fallback`` under ``fuse="levels"``).
+    ``fuse="pyramid"`` demotes to ``"levels"``: the fused-pyramid kernels
+    are 2-D-pyramid-only.
 
     >>> import torch
     >>> from repro_torch import dwt3, idwt3

@@ -21,7 +21,9 @@ Registered backends:
   (:mod:`repro_torch.kernels.tap_window`; the reference's ``"pallas"``):
   one launch per barrier step under ``fuse="none"``, one per level under
   ``"scheme"``/``"levels"``, and one per transform under ``"pyramid"``
-  (the fused-pyramid kernels, :mod:`repro_torch.kernels.pyramid_window`).
+  (the fused-pyramid kernels, :mod:`repro_torch.kernels.pyramid_window`);
+  a 3-D plan's temporal pass is one launch of the temporal lifting kernel
+  per level and direction (:mod:`repro_torch.kernels.temporal_lift`).
   On CPU tensors it runs the kernels' plain versions.
 * ``"conv"``  — the compiled tap programs as ``F.conv2d`` calls over the
   stacked polyphase planes (:mod:`repro_torch.compiler.conv`; the
@@ -35,14 +37,18 @@ PyTorch runs eagerly, so every backend chains levels in Python;
 ``fuse="levels"`` differs from ``"scheme"`` only in name here.  Packet and
 3-D plans run on every backend through its level hooks
 (:func:`~repro_torch.engine.executor.make_packet_forward`,
-:func:`~repro_torch.engine.executor.make_dwt3_forward`).
+:func:`~repro_torch.engine.executor.make_dwt3_forward`), 3-D plans also
+through its temporal hooks (``temporal_forward`` / ``temporal_inverse``:
+the plain pass on ``"torch"`` and ``"conv"``, the kernel on ``"cuda"``).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 from repro_torch import telemetry as T
+from repro_torch.compiler import temporal as TP
 from repro_torch.engine import executor as X
+from repro_torch.kernels import temporal_lift as TL
 
 __all__ = ["Backend", "BackendError", "register_backend", "get_backend",
            "available_backends", "capability_matrix"]
@@ -148,6 +154,19 @@ class Backend:
     def level_inverse(self, planes, spec, key):
         """One inverse level: 4 subband planes -> image (..., H, W)."""
         raise NotImplementedError
+
+    def temporal_forward(self, x, prog, compute_dtype):
+        """One forward temporal level of a 3-D plan: volume (..., T, H, W)
+        -> (low, high) half-bands of T/2 frames.  Default: the plain
+        periodic-roll pass (:func:`~repro_torch.compiler.temporal.
+        temporal_forward`)."""
+        return TP.temporal_forward(x, prog, compute_dtype)
+
+    def temporal_inverse(self, lo, hi, prog, compute_dtype):
+        """One inverse temporal level: (low, high) -> volume (..., T, H,
+        W).  Default: the plain pass (:func:`~repro_torch.compiler.
+        temporal.temporal_inverse`)."""
+        return TP.temporal_inverse(lo, hi, prog, compute_dtype)
 
     def make_forward(self, plan):
         """Build the forward executor: x -> (ll, details coarsest-first)."""
@@ -304,6 +323,14 @@ class CudaBackend(Backend):
     def level_inverse(self, planes, spec, key):
         return X.cuda_level_inverse(planes, spec, key)
 
+    # the temporal pass of a 3-D plan: one temporal_lift launch per level
+    # and direction (its plain version on CPU tensors)
+    def temporal_forward(self, x, prog, compute_dtype):
+        return TL.temporal_lift_forward(x, prog, compute_dtype)
+
+    def temporal_inverse(self, lo, hi, prog, compute_dtype):
+        return TL.temporal_lift_inverse(lo, hi, prog, compute_dtype)
+
     def make_forward(self, plan):
         if plan.pyramid is not None:
             return X.make_pyramid_forward(plan)
@@ -315,6 +342,9 @@ class CudaBackend(Backend):
         return super().make_inverse(plan)
 
     def launches(self, plan) -> int:
+        """Window and fused-pyramid kernel launches; a 3-D plan's temporal
+        pass adds one temporal lifting launch per level and direction,
+        counted under its own kernel."""
         if plan.key.fuse == "pyramid" and plan.pyramid is not None:
             return 1
         return self.level_launches(plan)

@@ -120,14 +120,17 @@ def conv_level_inverse(planes, spec, key):
 # ---------------------------------------------------------------------------
 #
 # Both workloads compose the per-level hooks every backend implements
-# (``level_forward`` / ``level_inverse``), so they run on all registered
-# backends with no backend-specific kernel work: a packet node at depth d
-# has exactly the geometry of pyramid level d (the plan's LevelSpecs, and
-# so the window kernel's block for that plane shape, are reused by
-# depth), and the 3-D transform's temporal half-bands ride the free
-# leading batch dims of the 2-D kernels.  PyTorch runs eagerly: every
-# fuse mode chains the nodes in Python (``Backend.temporal_fuse`` only
-# decides the fallback a 3-D plan records).
+# (``level_forward`` / ``level_inverse``): a packet node at depth d has
+# exactly the geometry of pyramid level d (the plan's LevelSpecs, and so
+# the window kernel's block for that plane shape, are reused by depth),
+# and the 3-D transform's temporal half-bands ride the free leading batch
+# dims of the 2-D kernels.  The 3-D transform's temporal pass goes through
+# the backend's temporal hooks (``temporal_forward`` /
+# ``temporal_inverse``): the plain roll pass by default, one temporal
+# lifting launch per level and direction on "cuda".  PyTorch runs
+# eagerly: every fuse mode chains the nodes in Python
+# (``Backend.temporal_fuse`` only decides the fallback a 3-D plan
+# records).
 
 
 def make_packet_forward(plan, backend):
@@ -177,9 +180,9 @@ def make_packet_inverse(plan, backend):
 def make_dwt3_forward(plan, backend):
     """Forward 3-D executor: volume (..., T, H, W) -> (lll, details
     coarsest-first).  Each level lifts along time (periodic 1-D lifting,
-    :mod:`repro_torch.compiler.temporal`) then transforms both temporal
-    half-bands with the backend's 2-D level; only the tL·LL subband
-    recurses."""
+    :mod:`repro_torch.compiler.temporal`, through the backend's
+    ``temporal_forward``) then transforms both temporal half-bands with
+    the backend's 2-D level; only the tL·LL subband recurses."""
     from repro_torch.compiler import temporal as TP
     key, specs = plan.key, plan.level_specs
     prog = TP.compile_temporal(key.wavelet)
@@ -192,7 +195,7 @@ def make_dwt3_forward(plan, backend):
             with T.device_span("level3.forward", key.device,
                                level=spec.index, backend=backend.name):
                 with T.device_span("temporal.forward", key.device):
-                    lo, hi = TP.temporal_forward(v, prog, cdt)
+                    lo, hi = backend.temporal_forward(v, prog, cdt)
                 v, hl0, lh0, hh0 = backend.level_forward(lo, spec, key)
                 llh, hlh, lhh, hhh = backend.level_forward(hi, spec, key)
             details.append((hl0, lh0, hh0, llh, hlh, lhh, hhh))
@@ -217,7 +220,7 @@ def make_dwt3_inverse(plan, backend):
                 lo = backend.level_inverse((v, hl0, lh0, hh0), spec, key)
                 hi = backend.level_inverse((llh, hlh, lhh, hhh), spec, key)
                 with T.device_span("temporal.inverse", key.device):
-                    v = TP.temporal_inverse(lo, hi, prog, cdt)
+                    v = backend.temporal_inverse(lo, hi, prog, cdt)
         return v
 
     return run

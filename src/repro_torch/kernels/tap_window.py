@@ -553,7 +553,8 @@ class KernelLibrary:
 LAUNCHES = T.counter(
     "repro_kernel_launches_total",
     "launches of the hand-written CUDA kernels (tap_window = K1, "
-    "pyramid_forward = K2, pyramid_inverse = K3)",
+    "pyramid_forward = K2, pyramid_inverse = K3, temporal_lift = the "
+    "3-D transform's temporal pass)",
     labelnames=("kernel",), gated=False)
 
 

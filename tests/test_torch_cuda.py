@@ -1,7 +1,8 @@
-"""The CUDA kernels on the card (the window kernel K1 and the
-fused-pyramid kernels K2/K3), against their plain versions; the packet
-and 3-D paths through K1 against the same calls on the CPU; the conv
-backend on the card at full fp32; and ``backend="auto"`` and the server
+"""The CUDA kernels on the card (the window kernel K1, the fused-pyramid
+kernels K2/K3 and the temporal lifting kernel), against their plain
+versions; the packet and 3-D paths through K1 against the same calls on
+the CPU; the conv backend on the card at full fp32; and
+``backend="auto"`` and the server
 on the card (cold rule, warmed store, served results bit for bit, two
 workers on their own streams, pinned host buffers); gradient compression
 through K1 (bit for bit against the plain version at qwen2-0.5b's tile
@@ -321,6 +322,82 @@ def test_workloads_on_the_card_equal_the_cpu_bit_for_bit(cuda_device, fuse):
     assert torch.equal(rec.cpu(), R.idwt3(want, fuse=fuse, backend="cuda",
                                           device="cpu"))
     torch.testing.assert_close(rec.cpu(), v, **ROUNDTRIP_TOL)
+
+
+#: (I/O dtype, compute dtype) pairs the temporal lifting kernel is held to
+TEMPORAL_DTYPES = ((torch.float32, torch.float32),
+                   (torch.float16, torch.float32),
+                   (torch.bfloat16, torch.float32),
+                   (torch.float32, torch.bfloat16),
+                   (torch.bfloat16, torch.bfloat16))
+#: T of 2, 4, 466 and 1864 frames; W not a multiple of 4; batch dims
+TEMPORAL_SHAPES = ((2, 5, 7), (3, 4, 6, 10), (466, 9, 13), (2, 1864, 3, 7))
+
+
+@pytest.mark.parametrize("io,cdt", TEMPORAL_DTYPES)
+@pytest.mark.parametrize("wavelet", WAVELETS)
+def test_temporal_lift_equals_the_plain_pass(cuda_device, tmp_path, wavelet,
+                                             io, cdt):
+    """The temporal lifting kernel equals the plain pass bit for bit in
+    every dtype, on contiguous volumes, on a strided view along T and on
+    layouts it takes through a contiguous copy (a transposed plane, one
+    channel of a channels-last video, transposed bands), one launch each;
+    the "cuda" backend's temporal hooks launch it and no other kernel; a
+    dwt3 + idwt3 round trip launches it 2 x levels times, and on a
+    transposed volume equals the CPU's."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.compiler import temporal as TP
+    from repro_torch.engine import backends as B
+    from repro_torch.kernels import temporal_lift as TL
+    fwd, inv = (TP.compile_temporal(wavelet, i) for i in (False, True))
+    g = torch.Generator().manual_seed(3)
+    vols = [torch.randn(s, generator=g) for s in TEMPORAL_SHAPES]
+    vols.append(torch.randn((2, 932, 9, 13), generator=g)[:, 1::2])
+    for v in vols:
+        for x in (v.to(device=cuda_device, dtype=io),
+                  v.to(device=cuda_device, dtype=io).transpose(-1, -2),
+                  torch.stack([v, -v], -1).to(device=cuda_device,
+                                              dtype=io)[..., 0]):
+            before = TL.KERNEL.launches
+            lo, hi = TL.temporal_lift_forward(x, fwd, cdt)
+            back = TL.temporal_lift_inverse(lo, hi, inv, cdt)
+            mt = TL.temporal_lift_inverse(lo.mT, hi.mT, inv, cdt)
+            torch.cuda.synchronize()
+            assert TL.KERNEL.launches == before + 3
+            want = TP.temporal_forward(x, fwd, cdt)
+            assert lo.dtype == io and lo.shape == want[0].shape
+            assert torch.equal(lo, want[0]) and torch.equal(hi, want[1])
+            assert torch.equal(back, TP.temporal_inverse(lo, hi, inv, cdt))
+            assert torch.equal(mt, TP.temporal_inverse(lo.mT, hi.mT, inv,
+                                                       cdt))
+    be = B.get_backend("cuda")
+    x = vols[1].to(device=cuda_device, dtype=io)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        be.temporal_inverse(*be.temporal_forward(x, fwd, cdt), inv, cdt)
+        torch.cuda.synchronize()
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"}
+    assert names and all("temporal_lift_kernel" in n for n in names), names
+    v = torch.randn((2, 16, 24, 40), generator=g).to(device=cuda_device,
+                                                     dtype=io)
+    kw = dict(wavelet=wavelet, backend="cuda", device=cuda_device,
+              compute_dtype=str(cdt).split(".")[-1])
+    before = TL.KERNEL.launches
+    got = R.dwt3(v, levels=3, **kw)
+    rec = R.idwt3(got, **kw)
+    torch.cuda.synchronize()
+    assert TL.KERNEL.launches == before + 2 * 3
+    want = R.dwt3(v.cpu(), levels=3, **{**kw, "device": "cpu"})
+    assert torch.equal(got.ll.cpu(), want.ll)
+    assert torch.equal(rec.cpu(), R.idwt3(want, **{**kw, "device": "cpu"}))
+    got = R.dwt3(v.mT, levels=3, **kw)
+    want = R.dwt3(v.mT.cpu(), levels=3, **{**kw, "device": "cpu"})
+    assert torch.equal(got.ll.cpu(), want.ll)
+    assert torch.equal(R.idwt3(got, **kw).cpu(),
+                       R.idwt3(want, **{**kw, "device": "cpu"}))
 
 
 @pytest.mark.parametrize("scheme,fuse", [("ns-polyconv", "none"),
