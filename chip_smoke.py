@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build   — builds ``src/repro_torch/csrc/tap_window.cu`` (the window
              kernel K1), ``pyramid_window.cu`` (the fused-pyramid
-             kernels K2/K3) and ``temporal_lift.cu`` (the 3-D transform's
-             temporal pass) with nvcc for sm_90a, all at once, and prints
+             kernels K2/K3), ``temporal_lift.cu`` (the 3-D transform's
+             temporal pass) and ``rev_lift.cu`` (a level of the lossless
+             5-3) with nvcc for sm_90a, all at once, and prints
              the build times and the ``-Xptxas -v`` registers and spills;
 2. kernel  — each kernel against its plain version on the same CUDA
              tensors: K1 (``tap_window_ref``) for every wavelet x scheme x
@@ -32,6 +33,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
              then the same comparison and its time at the volume cell's
              level-0 shape (1864x512x512 float32, 9/7), forward and
              inverse, beside its bytes bound and the plain pass's time;
+2d. reversible — the reversible lifting kernel (``rev_lift.cu``, one
+             level of the lossless 5-3 of ISO/IEC 15444-1 Annex F on int32
+             images) against the plain integer path
+             (``core/reversible.py``) on the same tensors, forward and
+             inverse, at odd tile counts, partial tiles, 2-sample edges and
+             batch dims; then ``dwt2``/``idwt2`` of the lossless cell's
+             series (1871x512x512 int32, 5 levels) on backend "cuda": 10
+             launches, every level's subbands against the plain path and
+             the reconstruction equal to the input (max |diff| 0 each),
+             with the kernel's and the plain path's times at level 0;
 3. main    — ``repro_torch.dwt2`` / ``idwt2`` at B=8, 2048x2048, float32,
              3 levels, cdf97 on backend "cuda": ns-polyconv at fuse
              "none", "scheme", "levels" and "pyramid", sep-lifting at
@@ -309,11 +320,13 @@ TPU_KERNELS = {"tap_window": "src/repro/kernels/polyphase.py:203",
                "pyramid_inverse": "src/repro/kernels/polyphase.py:493",
                "temporal_lift": "none: the reference runs the pass as jnp "
                                 "between its Pallas kernels "
-                                "(src/repro/compiler/temporal.py)"}
+                                "(src/repro/compiler/temporal.py)",
+               "rev_lift": "none: the reference has no integer path"}
 SOURCES = {"tap_window": "src/repro_torch/csrc/tap_window.cu",
            "pyramid_forward": "src/repro_torch/csrc/pyramid_window.cu",
            "pyramid_inverse": "src/repro_torch/csrc/pyramid_window.cu",
-           "temporal_lift": "src/repro_torch/csrc/temporal_lift.cu"}
+           "temporal_lift": "src/repro_torch/csrc/temporal_lift.cu",
+           "rev_lift": "src/repro_torch/csrc/rev_lift.cu"}
 # phase 2c: the kernel's shapes (T of 2, 4, 466 and 1864; W not a
 # multiple of 4; batch dims) and its timing at the volume cell's level 0
 TEMPORAL_SHAPES = ((2, 5, 7), (3, 4, 6, 10), (466, 9, 13), (2, 1864, 3, 7))
@@ -321,6 +334,12 @@ TEMPORAL_DTYPES = (("float32", "float32"), ("float16", "float32"),
                    ("bfloat16", "float32"), ("float32", "bfloat16"),
                    ("bfloat16", "bfloat16"), ("float16", "bfloat16"))
 TEMPORAL_TIMED = (1864, 512, 512)
+# phase 2d: the reversible kernel's shapes (partial tiles, H or W of 2,
+# batch dims) and the lossless cell's series
+REVERSIBLE_SHAPES = ((1, 2, 2), (2, 4, 6), (3, 66, 130), (5, 96, 200),
+                     (2, 2, 1026), (1, 1030, 6), (2, 3, 64, 64))
+REVERSIBLE_TIMED = (1871, 512, 512)
+REVERSIBLE_LEVELS = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -398,12 +417,12 @@ def kernels(TW, PW):
             "pyramid_inverse": PW.INVERSE}
 
 
-def phase_build(TW, PW, TL, cpu):
+def phase_build(TW, PW, TL, RL, cpu):
     print("== phase 1: build", flush=True)
     if cpu:
         print("cpu rehearsal: kernels not built (no nvcc on this machine)")
         return
-    libs = (TW.LIBRARY, PW.LIBRARY, TL.LIBRARY)
+    libs = (TW.LIBRARY, PW.LIBRARY, TL.LIBRARY, RL.LIBRARY)
     errors = []
 
     def build(lib):
@@ -575,6 +594,109 @@ def phase_temporal_kernel(torch, TL, device, cpu, gen, timer):
               f"{TL.encode(fwd).chunking(shape[0] // 2)}, grid {grid}, "
               f"{per_sm} blocks per SM")
     del x, lo, hi
+    return dict(max_abs_err=worst, launches=launches,
+                entry=dict(ms=row["forward"][0],
+                           inverse_ms=row["inverse"][0],
+                           plain_ms=row["forward"][1],
+                           plain_inverse_ms=row["inverse"][1],
+                           bound_ms=bound, bound_by="bytes",
+                           library_ms=None))
+
+
+def phase_reversible_kernel(torch, R, RL, device, cpu, gen, timer):
+    """The reversible lifting kernel vs the plain integer path, then the
+    lossless cell's series through ``dwt2``/``idwt2``; returns its
+    kernels-line entry (largest |diff|, launches, times)."""
+    print("== phase 2d: reversible lifting kernel vs plain path",
+          flush=True)
+    from repro_torch.core import reversible as RV
+
+    def samples(shape):
+        return torch.randint(-2048, 2048, shape, generator=gen,
+                             dtype=torch.int32).to(device)
+
+    worst, launches = 0.0, 0
+    for shape in REVERSIBLE_SHAPES:
+        x = samples(shape)
+        before = RL.KERNEL.launches
+        got = RL.rev_lift_forward(x)
+        back = RL.rev_lift_inverse(got)
+        n = RL.KERNEL.launches - before
+        check(n == (0 if cpu else 2),
+              f"rev_lift launched {n} times for 2 calls")
+        launches += n
+        want = RV.level_forward(x, "rev53")
+        for g, w in zip(got + (back,),
+                        want + (RV.level_inverse(want, "rev53"),)):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"rev_lift output {g.dtype} {tuple(g.shape)} vs plain "
+                  f"{w.dtype} {tuple(w.shape)}")
+            d = max_abs(g, w)
+            worst = max(worst, d)
+            check(d == 0.0, f"rev_lift disagrees with the plain path: max "
+                            f"|diff| {d} at {shape}")
+        check(torch.equal(back, x), f"rev_lift round trip of {shape} is "
+                                    f"not exact")
+    print(f"{len(REVERSIBLE_SHAPES)} reversible kernel/plain comparisons "
+          f"(forward and inverse): max |diff| {worst!r}")
+    shape = (4, 64, 64) if cpu else REVERSIBLE_TIMED
+    L = REVERSIBLE_LEVELS
+    kw = dict(wavelet="rev53", scheme="sep-lifting", boundary="symmetric",
+              fuse="levels", backend="cuda", device=device)
+    x = samples(shape)
+    before = RL.KERNEL.launches
+    pyr = R.dwt2(x, levels=L, **kw)
+    rec = R.idwt2(pyr, **kw)
+    n = RL.KERNEL.launches - before
+    check(n == (0 if cpu else 2 * L),
+          f"dwt2+idwt2 of rev53 launched rev_lift {n} times, expected "
+          f"{2 * L}")
+    launches += n
+    check(torch.equal(rec, x), "rev53 round trip of the series is not "
+                               "exact")
+    del rec
+    cur, d = x, 0.0
+    for level in range(L):
+        want = RV.level_forward(cur, "rev53")
+        got = pyr.details[L - 1 - level]        # coarsest first
+        d = max([d] + [max_abs(g, w) for g, w in zip(got, want[1:])])
+        cur = want[0]
+    d = max(d, max_abs(pyr.ll, cur))
+    del cur, want, got
+    worst = max(worst, d)
+    check(d == 0.0, f"dwt2 of rev53 on 'cuda' disagrees with the plain "
+                    f"path at {shape}: max |diff| {d}")
+    print(f"rev53 dwt2+idwt2 {'x'.join(map(str, shape))} int32, {L} "
+          f"levels: {n} rev_lift launches, every subband vs the plain "
+          f"path max |diff| {d!r}, reconstruction exact")
+    nbytes = 2 * x.numel() * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    bands = RL.rev_lift_forward(x)
+    row = {}
+    for op, run, plain in (
+            ("forward", lambda: RL.rev_lift_forward(x),
+             lambda: RV.level_forward(x, "rev53")),
+            ("inverse", lambda: RL.rev_lift_inverse(bands),
+             lambda: RV.level_inverse(bands, "rev53"))):
+        before = RL.KERNEL.launches
+        k_ms = timer.ms(run)
+        launches += RL.KERNEL.launches - before
+        grid, per_sm = RL.KERNEL.last_grid
+        p_ms = timer.ms(plain, reps=3, warmup=1)
+        row[op] = (k_ms, p_ms)
+        print(f"rev_lift {op} level 0 {'x'.join(map(str, shape))} int32: "
+              f"kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s, "
+              f"{bound / k_ms:.4f} of the bound {bound:.4f} ms, bytes), "
+              f"plain {p_ms:.4f} ms, grid {grid}, {per_sm} blocks per SM")
+    before = RL.KERNEL.launches
+    call_ms = {name: timer.ms(run, reps=5) for name, run in (
+        ("dwt2", lambda: R.dwt2(x, levels=L, **kw)),
+        ("idwt2", lambda: R.idwt2(pyr, **kw)))}
+    launches += RL.KERNEL.launches - before
+    print(f"rev53 {L}-level calls on 'cuda': dwt2 {call_ms['dwt2']:.4f} "
+          f"ms, idwt2 {call_ms['idwt2']:.4f} ms (one call between CUDA "
+          f"events)")
+    del x, pyr, bands
     return dict(max_abs_err=worst, launches=launches,
                 entry=dict(ms=row["forward"][0],
                            inverse_ms=row["inverse"][0],
@@ -3819,6 +3941,7 @@ def main(argv=None):
     from repro_torch.kernels import polyphase as PP
     from repro_torch.kernels import pyramid_window as PW
     from repro_torch.kernels import tap_window as TW
+    from repro_torch.kernels import rev_lift as RL
     from repro_torch.kernels import temporal_lift as TL
     # the checks below read the defaults: counters on, the plane disarmed
     T.set_mode("counters")
@@ -3831,13 +3954,17 @@ def main(argv=None):
           f" (importlib.util.find_spec)", flush=True)
     t_start = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
-    phase_build(TW, PW, TL, cpu)
+    phase_build(TW, PW, TL, RL, cpu)
     max_err = {"tap_window": phase_kernel(torch, C, TW, device, cpu, gen)}
     no_fallbacks("phase 2")
     timer = Timer(torch, device)
     temporal = phase_temporal_kernel(torch, TL, device, cpu, gen, timer)
     max_err["temporal_lift"] = temporal["max_abs_err"]
     no_fallbacks("phase 2c")
+    reversible = phase_reversible_kernel(torch, R, RL, device, cpu, gen,
+                                         timer)
+    max_err["rev_lift"] = reversible["max_abs_err"]
+    no_fallbacks("phase 2d")
     worst = phase_pyramid_kernel(torch, R, PW, device, cpu, gen)
     max_err.update(pyramid_forward=worst["pyramid_forward"],
                    pyramid_inverse=worst["pyramid_inverse"])
@@ -3884,6 +4011,8 @@ def main(argv=None):
     entries["temporal_lift"] = temporal["entry"]
     # the temporal kernel's launches counted in phases 2c and 3c
     launched["temporal_lift"] = temporal["launches"] + n_temporal
+    entries["rev_lift"] = reversible["entry"]
+    launched["rev_lift"] = reversible["launches"]
     no_fallbacks("phase 4")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     card = "cpu rehearsal" if cpu else nvidia_smi()
@@ -3893,7 +4022,8 @@ def main(argv=None):
                          launches=launched[name], max_abs_err=max_err[name],
                          **entries[name])
                     for name in ("tap_window", "pyramid_forward",
-                                 "pyramid_inverse", "temporal_lift")]
+                                 "pyramid_inverse", "temporal_lift",
+                                 "rev_lift")]
     print(json.dumps({"kernels": kernels_line}))
     kind = "cpu" if cpu else torch.cuda.get_device_name(0)
     count = 0 if cpu else torch.cuda.device_count()

@@ -51,15 +51,34 @@ Parameters shared by :func:`dwt2` and :func:`idwt2`:
       fit in shared memory); the "torch" backend runs the per-level
       chain
 ``boundary``
-    Only ``"periodic"`` is implemented.
+    ``"periodic"`` for the float wavelets; ``"symmetric"`` (Annex F's
+    whole-sample symmetric extension) for the reversible ones.
+``compute_dtype``
+    The arithmetic dtype: ``"float32"`` (the default of a float wavelet)
+    or ``"bfloat16"``; ``"int32"`` (the only one, and the default) for a
+    reversible wavelet.
+
+**Lossless coding.**  ``wavelet="rev53"`` is JPEG 2000's reversible
+5-3 (ISO/IEC 15444-1 Annex F): int32 images in, int32 subbands out, and
+``idwt2`` returns every sample exactly.  It takes
+``scheme="sep-lifting"`` (a level lifts every column, then every row, as
+the standard orders them) and ``boundary="symmetric"``, on the ``"cuda"``
+backend (one launch of the reversible lifting kernel a level) or
+``"torch"`` (the plain integer path)::
+
+    pyr = dwt2(x_int32, wavelet="rev53", scheme="sep-lifting",
+               boundary="symmetric", levels=5)
+    assert torch.equal(idwt2(pyr, wavelet="rev53", scheme="sep-lifting",
+                             boundary="symmetric"), x_int32)
 """
 from __future__ import annotations
 
 import torch
 
-from typing import List
+from typing import List, Optional
 
 from repro_torch import telemetry as T
+from repro_torch.core.wavelets import is_reversible
 from repro_torch.engine.pyramid import (Detail, Pyramid, Pyramid3,
                                         WaveletPacket2D)
 
@@ -137,6 +156,14 @@ def _plan_for(shape, dtype, wavelet, levels, scheme, optimize, backend,
                           packet=packet, ndim=ndim)
 
 
+def _compute_dtype(wavelet: str, compute_dtype):
+    """``compute_dtype``, or the wavelet's own when it is None: int32 for
+    a reversible wavelet, float32 else."""
+    if compute_dtype is not None:
+        return compute_dtype
+    return "int32" if is_reversible(wavelet) else "float32"
+
+
 def _device(device):
     from repro_torch.engine.plan import resolve_device  # deferred, as above
     return resolve_device(device)
@@ -145,14 +172,15 @@ def _device(device):
 def dwt2(x, wavelet: str = "cdf97", levels: int = 1,
          scheme: str = "ns-polyconv", optimize: bool = False,
          backend: str = "cuda", fuse: str = "none",
-         boundary: str = "periodic", compute_dtype: str = "float32",
+         boundary: str = "periodic", compute_dtype: Optional[str] = None,
          tap_opt: str = "full", tiles=None, validate=None,
          device="cuda") -> Pyramid:
     """Multi-level forward 2-D DWT of a (batch of) image(s) (..., H, W).
 
     H and W must be divisible by 2**levels.  ``x`` (a tensor or array) is
-    moved to ``device``.  ``compute_dtype`` ("float32" or "bfloat16") sets
-    the arithmetic dtype — I/O stays in the input dtype.  ``tap_opt``
+    moved to ``device``.  ``compute_dtype`` ("float32" or "bfloat16"; None
+    takes the wavelet's own) sets the arithmetic dtype — I/O stays in the
+    input dtype.  ``tap_opt``
     selects the tap-program compiler level ("off", "exact", "full").
     ``validate="nan"`` rejects NaN/Inf inputs at the plan boundary.  See
     the module docstring for the other parameters.
@@ -170,15 +198,16 @@ def dwt2(x, wavelet: str = "cdf97", levels: int = 1,
         x = _on(x, dev)
         validate_finite(x, validate, what="dwt2 input")
         plan = _plan_for(x.shape, x.dtype, wavelet, levels, scheme,
-                         optimize, backend, fuse, boundary, compute_dtype,
-                         tap_opt, tiles, dev)
+                         optimize, backend, fuse, boundary,
+                         _compute_dtype(wavelet, compute_dtype), tap_opt,
+                         tiles, dev)
         return plan.execute(x)
 
 
 def idwt2(pyr: Pyramid, wavelet: str = "cdf97",
           scheme: str = "ns-polyconv", optimize: bool = False,
           backend: str = "cuda", fuse: str = "none",
-          boundary: str = "periodic", compute_dtype: str = "float32",
+          boundary: str = "periodic", compute_dtype: Optional[str] = None,
           tap_opt: str = "full", tiles=None, validate=None,
           device="cuda") -> torch.Tensor:
     """Inverse of :func:`dwt2` (pass the same ``wavelet``/``scheme``/
@@ -205,8 +234,9 @@ def idwt2(pyr: Pyramid, wavelet: str = "cdf97",
         shape = tuple(ll.shape[:-2]) + (ll.shape[-2] << levels,
                                         ll.shape[-1] << levels)
         plan = _plan_for(shape, ll.dtype, wavelet, levels, scheme,
-                         optimize, backend, fuse, boundary, compute_dtype,
-                         tap_opt, tiles, dev)
+                         optimize, backend, fuse, boundary,
+                         _compute_dtype(wavelet, compute_dtype), tap_opt,
+                         tiles, dev)
         return plan.execute_inverse(pyr)
 
 

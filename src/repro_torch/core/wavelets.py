@@ -18,6 +18,12 @@ The three wavelets are the ones evaluated by the paper (Table 1):
 * CDF 9/7  (Cohen-Daubechies-Feauveau [3]; JPEG 2000 lossy) — K=2.
 * DD 13/7  (Deslauriers-Dubuc interpolating, Sweldens [14]) — K=1,
   4-tap P and U.
+
+Beside them, :data:`REVERSIBLE` holds the integer-to-integer wavelets of
+lossless coding: ``rev53``, the reversible 5-3 of ISO/IEC 15444-1
+Annex F (JPEG 2000 lossless), whose floored lifting steps map int32
+samples to int32 coefficients and back exactly.  They run only through
+the integer path (:mod:`repro_torch.core.reversible`).
 """
 from __future__ import annotations
 
@@ -146,6 +152,38 @@ DD137 = Wavelet(
 )
 
 WAVELETS: Dict[str, Wavelet] = {w.name: w for w in (CDF53, CDF97, DD137)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ReversibleWavelet:
+    """An integer lifting pair with floors (ISO/IEC 15444-1 Annex F):
+
+        d[n] -= (s[n] + s[n+1]) >> predict_shift
+        s[n] += (d[n-1] + d[n] + update_round) >> update_shift
+
+    on int32 polyphase components (``>>`` floors), with no scaling.  The
+    inverse undoes the two steps in reverse order, exactly."""
+
+    name: str
+    predict_shift: int
+    update_shift: int
+    update_round: int
+
+
+# ---------------------------------------------------------------------------
+# Reversible 5-3 (ISO/IEC 15444-1 Annex F, F.3.8.2 / F.4.8.2):
+#   d[n] = x[2n+1] - floor((x[2n] + x[2n+2]) / 2)
+#   s[n] = x[2n]   + floor((d[n-1] + d[n] + 2) / 4)
+# ---------------------------------------------------------------------------
+REV53 = ReversibleWavelet(name="rev53", predict_shift=1, update_shift=2,
+                          update_round=2)
+
+REVERSIBLE: Dict[str, ReversibleWavelet] = {w.name: w for w in (REV53,)}
+
+
+def is_reversible(name: str) -> bool:
+    """Whether ``name`` is an integer-to-integer wavelet."""
+    return name in REVERSIBLE
 
 
 def get_wavelet(name: str) -> Wavelet:

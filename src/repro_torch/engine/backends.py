@@ -40,6 +40,18 @@ PyTorch runs eagerly, so every backend chains levels in Python;
 :func:`~repro_torch.engine.executor.make_dwt3_forward`), 3-D plans also
 through its temporal hooks (``temporal_forward`` / ``temporal_inverse``:
 the plain pass on ``"torch"`` and ``"conv"``, the kernel on ``"cuda"``).
+
+Reversible wavelets (``rev53``, :data:`repro_torch.core.wavelets.
+REVERSIBLE`) run through the reversible hooks (``reversible_forward`` /
+``reversible_inverse``) of the backends that have an integer path
+(``Backend.reversible``): ``"torch"`` runs the plain integer path
+(:mod:`repro_torch.core.reversible`), ``"cuda"`` one launch of the
+reversible lifting kernel per level and direction
+(:mod:`repro_torch.kernels.rev_lift`; its plain version on CPU tensors).
+Such a key is checked against :data:`REVERSIBLE_KEY`: the lifting scheme
+of Annex F, its symmetric extension, int32 samples, no packets, volumes
+or tiles, no fused pyramid; ``"conv"`` and ``"auto"`` have no integer
+path.  A float wavelet refuses an integer dtype.
 """
 from __future__ import annotations
 
@@ -47,7 +59,10 @@ from typing import Dict, Optional, Tuple
 
 from repro_torch import telemetry as T
 from repro_torch.compiler import temporal as TP
+from repro_torch.core import reversible as RV
+from repro_torch.core.wavelets import REVERSIBLE, is_reversible
 from repro_torch.engine import executor as X
+from repro_torch.kernels import rev_lift as RL
 from repro_torch.kernels import temporal_lift as TL
 
 __all__ = ["Backend", "BackendError", "register_backend", "get_backend",
@@ -58,6 +73,15 @@ __all__ = ["Backend", "BackendError", "register_backend", "get_backend",
 UNPORTED_BACKENDS = ()
 #: reference backends whose work a port backend of another name does
 RENAMED_BACKENDS = {"xla": "conv"}
+
+#: what a reversible wavelet's PlanKey must hold, by field: Annex F
+#: defines its subbands for the separable lifting scheme, on the
+#: symmetric extension, over integer samples
+REVERSIBLE_KEY = {"scheme": ("sep-lifting",), "boundary": ("symmetric",),
+                  "dtype": ("int32",), "compute_dtype": ("int32",),
+                  "fuse": ("none", "scheme", "levels")}
+#: I/O dtypes no float wavelet takes
+INTEGER_DTYPES = ("int8", "uint8", "int16", "int32", "int64")
 
 
 class BackendError(ValueError):
@@ -96,12 +120,23 @@ class Backend:
     #: records on the plan that the temporal pass runs unfused between
     #: the backend's kernels (the reference's pallas capability fallback)
     temporal_fuse: bool = True
+    #: True when the backend runs reversible wavelets (the integer path)
+    reversible: bool = False
 
     # -- plan-build hooks --------------------------------------------------
 
     def validate(self, key) -> None:
         """Reject PlanKeys this backend cannot execute (the message names
         the offending PlanKey field and the supported values)."""
+        if is_reversible(key.wavelet):
+            self.validate_reversible(key)
+            return
+        if key.dtype in INTEGER_DTYPES:
+            raise BackendError(
+                f"wavelet {key.wavelet!r} transforms floating samples, got "
+                f"PlanKey.dtype={key.dtype!r}; the integer path is the "
+                f"reversible wavelets' ({sorted(REVERSIBLE)}), or cast the "
+                f"samples to a floating dtype")
         if key.fuse not in self.fuse_modes:
             raise BackendError(
                 f"backend {self.name!r} does not support "
@@ -133,6 +168,32 @@ class Backend:
                 f"fuse='pyramid' is the 2-D pyramid megakernel; packet "
                 f"and 3-D plans on {self.name!r} execute at "
                 f"fuse='levels' (build_plan demotes automatically)")
+
+    def validate_reversible(self, key) -> None:
+        """The checks of a reversible wavelet's key (:data:`REVERSIBLE_KEY`):
+        each names the offending PlanKey field."""
+        if not self.reversible:
+            raise BackendError(
+                f"backend {self.name!r} has no integer path for the "
+                f"reversible wavelet {key.wavelet!r} (PlanKey.backend); "
+                f"backends with one: "
+                f"{[n for n, b in sorted(_REGISTRY.items()) if b.reversible]}")
+        for field, allowed in REVERSIBLE_KEY.items():
+            value = getattr(key, field)
+            if value not in allowed:
+                raise BackendError(
+                    f"the reversible wavelet {key.wavelet!r} does not "
+                    f"support PlanKey.{field}={value!r}; supported: "
+                    f"{allowed} (ISO/IEC 15444-1 Annex F)")
+        for field, value, plain in (("optimize", key.optimize, False),
+                                    ("packet", key.packet, None),
+                                    ("tiles", key.tiles, None),
+                                    ("ndim", key.ndim, 2)):
+            if value != plain:
+                raise BackendError(
+                    f"the reversible wavelet {key.wavelet!r} runs the "
+                    f"plain 2-D pyramid only; PlanKey.{field}={value!r} "
+                    f"is not supported (use {plain!r})")
 
     def program_opt(self, key) -> Optional[str]:
         """Tap-program compilation level for this backend, or None when
@@ -167,6 +228,16 @@ class Backend:
         W).  Default: the plain pass (:func:`~repro_torch.compiler.
         temporal.temporal_inverse`)."""
         return TP.temporal_inverse(lo, hi, prog, compute_dtype)
+
+    def reversible_forward(self, x, wavelet: str):
+        """One forward level of a reversible wavelet: int32 images
+        (..., H, W) -> (LL, HL, LH, HH)."""
+        raise NotImplementedError
+
+    def reversible_inverse(self, planes, wavelet: str):
+        """One inverse level of a reversible wavelet: (LL, HL, LH, HH) ->
+        int32 images (..., H, W)."""
+        raise NotImplementedError
 
     def make_forward(self, plan):
         """Build the forward executor: x -> (ll, details coarsest-first)."""
@@ -223,6 +294,9 @@ class Backend:
                 "packets": self.supports_packets,
                 "supports_3d": self.supports_3d,
                 "temporal_fuse": self.temporal_fuse,
+                "reversible": (dict(REVERSIBLE_KEY,
+                                    wavelets=tuple(sorted(REVERSIBLE)))
+                               if self.reversible else None),
                 "description": self.description}
 
 
@@ -285,6 +359,7 @@ class TorchBackend(Backend):
 
     name = "torch"
     description = "torch reference (roll-based periodic convolution)"
+    reversible = True
 
     def program_fuse(self, key) -> str:
         # no launch granularity: always run one whole-chain program/level
@@ -295,6 +370,13 @@ class TorchBackend(Backend):
 
     def level_inverse(self, planes, spec, key):
         return X.torch_level_inverse(planes, spec, key)
+
+    # reversible wavelets: the plain integer path
+    def reversible_forward(self, x, wavelet):
+        return RV.level_forward(x, wavelet)
+
+    def reversible_inverse(self, planes, wavelet):
+        return RV.level_inverse(planes, wavelet)
 
 
 class CudaBackend(Backend):
@@ -311,6 +393,7 @@ class CudaBackend(Backend):
     # the window kernel launches per level, so a 3-D plan's temporal pass
     # runs unfused between its launches (recorded on plan.fallback)
     temporal_fuse = False
+    reversible = True
 
     def program_opt(self, key) -> str:
         # "off" runs the lowered raw walk, bit-identical to walking the
@@ -331,6 +414,14 @@ class CudaBackend(Backend):
     def temporal_inverse(self, lo, hi, prog, compute_dtype):
         return TL.temporal_lift_inverse(lo, hi, prog, compute_dtype)
 
+    # reversible wavelets: one rev_lift launch per level and direction
+    # (its plain version on CPU tensors)
+    def reversible_forward(self, x, wavelet):
+        return RL.rev_lift_forward(x, wavelet)
+
+    def reversible_inverse(self, planes, wavelet):
+        return RL.rev_lift_inverse(planes, wavelet)
+
     def make_forward(self, plan):
         if plan.pyramid is not None:
             return X.make_pyramid_forward(plan)
@@ -344,7 +435,10 @@ class CudaBackend(Backend):
     def launches(self, plan) -> int:
         """Window and fused-pyramid kernel launches; a 3-D plan's temporal
         pass adds one temporal lifting launch per level and direction,
-        counted under its own kernel."""
+        counted under its own kernel.  A reversible plan launches the
+        reversible lifting kernel once a level."""
+        if is_reversible(plan.key.wavelet):
+            return plan.key.levels
         if plan.key.fuse == "pyramid" and plan.pyramid is not None:
             return 1
         return self.level_launches(plan)
@@ -400,7 +494,9 @@ class AutoBackend(Backend):
                    "(backend, fuse, block, tap_opt) per device")
 
     def validate(self, key) -> None:
-        return None
+        if is_reversible(key.wavelet):
+            # the profile store and the cost model measure float plans
+            self.validate_reversible(key)
 
     def make_forward(self, plan):
         raise BackendError(

@@ -227,6 +227,47 @@ def make_dwt3_inverse(plan, backend):
 
 
 # ---------------------------------------------------------------------------
+# reversible wavelets: the integer path, one level at a time
+# ---------------------------------------------------------------------------
+
+def make_reversible_forward(plan, backend):
+    """Forward executor of a reversible plan: int32 images -> (ll,
+    details coarsest-first), each level one ``revlift.forward`` span
+    around the backend's reversible level (on "cuda" one launch of the
+    reversible lifting kernel)."""
+    key, specs = plan.key, plan.level_specs
+
+    def run(x):
+        details = []
+        ll = x
+        for spec in specs:
+            with T.device_span("revlift.forward", key.device,
+                               level=spec.index, backend=backend.name):
+                ll, hl, lh, hh = backend.reversible_forward(ll, key.wavelet)
+            details.append((hl, lh, hh))
+        return ll, tuple(details[::-1])
+
+    return run
+
+
+def make_reversible_inverse(plan, backend):
+    """Inverse executor of a reversible plan: (ll, details
+    coarsest-first) -> int32 images, each level one ``revlift.inverse``
+    span."""
+    key, specs = plan.key, plan.level_specs
+
+    def run(ll, details):
+        for spec, (hl, lh, hh) in zip(reversed(specs), details):
+            with T.device_span("revlift.inverse", key.device,
+                               level=spec.index, backend=backend.name):
+                ll = backend.reversible_inverse((ll, hl, lh, hh),
+                                                key.wavelet)
+        return ll
+
+    return run
+
+
+# ---------------------------------------------------------------------------
 # cuda backend: the fused-pyramid kernels (one launch per transform)
 # ---------------------------------------------------------------------------
 

@@ -53,6 +53,15 @@ windows, run them through a monolithic *window plan* from the same cache
 (tiles stacked onto the batch dims) and stitch the cores.  The outer
 plan resolves no fused-pyramid kernel: its window plan does, under its
 own shared-memory guard.  A tiled plan's launches are its window plan's.
+
+Reversible wavelets (``rev53``: JPEG 2000's lossless 5-3, ISO/IEC
+15444-1 Annex F) take keys of their own (dtype and compute dtype
+``"int32"``, boundary ``"symmetric"``, scheme ``"sep-lifting"``; see
+:data:`~repro_torch.engine.backends.REVERSIBLE_KEY`) and run through the
+backend's reversible hooks, one level at a time: on ``"cuda"`` one
+launch of the reversible lifting kernel per level and direction at every
+fuse mode, on ``"torch"`` the plain integer path.  Float wavelets keep
+the periodic boundary (:data:`BOUNDARIES`).
 """
 from __future__ import annotations
 
@@ -70,15 +79,19 @@ from repro_torch import compiler as C
 from repro_torch import telemetry as T
 from repro_torch.core import optimize as O
 from repro_torch.core import schemes as S
+from repro_torch.core.wavelets import REVERSIBLE, is_reversible
 from repro_torch.engine import backends as B
 from repro_torch.engine import executor as X
 from repro_torch.faults import degrade as R
 from repro_torch.faults import inject as FI
 from repro_torch.kernels import polyphase as PP
 from repro_torch.kernels import pyramid_window as PW
+from repro_torch.kernels import rev_lift as RL
 from repro_torch.kernels import tap_window as TW
 
 FUSE_MODES = ("none", "scheme", "levels", "pyramid")
+#: the boundary of the float wavelets; the reversible wavelets' is
+#: ``B.REVERSIBLE_KEY["boundary"]``
 BOUNDARIES = ("periodic",)
 COMPUTE_DTYPES = tuple(TW.COMPUTE_DTYPES)
 
@@ -348,6 +361,9 @@ class DwtPlan:
         measurement or on a worker's stream."""
         dev = torch.device(self.key.device)
         if dev.type != "cuda" or not self.backend.window_kernel:
+            return self
+        if is_reversible(self.key.wavelet):
+            RL.LIBRARY.library()
             return self
         if self.grid is not None:
             from repro_torch.tiling import api as TA
@@ -622,6 +638,28 @@ def build_plan(key: PlanKey,
         return _build_plan(key, block_target)
 
 
+def _build_reversible(key: PlanKey, backend: "B.Backend") -> DwtPlan:
+    """A reversible wavelet's plan: the backend's checks of its key
+    (each naming the field), the geometry, and one level spec per level
+    with no steps or programs (the integer path runs the wavelet's
+    lifting pair itself)."""
+    if key.levels < 1:
+        raise ValueError(f"levels must be >= 1, got {key.levels}")
+    if len(key.shape) < 2:
+        raise ValueError(f"input must be (..., H, W), got {key.shape}")
+    backend.validate(key)
+    h, w = key.shape[-2], key.shape[-1]
+    validate_image_geometry(h, w, key.levels)
+    specs = tuple(LevelSpec(index=l, image_shape=(h >> l, w >> l),
+                            plane_shape=(h >> (l + 1), w >> (l + 1)),
+                            fwd_steps=(), inv_steps=())
+                  for l in range(key.levels))
+    plan = DwtPlan(key=key, level_specs=specs)
+    plan._forward = X.make_reversible_forward(plan, backend)
+    plan._inverse = X.make_reversible_inverse(plan, backend)
+    return plan
+
+
 def _build_plan(key: PlanKey,
                 block_target: Optional[Tuple[int, int]] = None) -> DwtPlan:
     PLAN_BUILDS.inc(backend=key.backend, fuse=key.fuse, scheme=key.scheme)
@@ -629,6 +667,13 @@ def _build_plan(key: PlanKey,
     if key.fuse not in FUSE_MODES:
         raise ValueError(f"unknown fuse mode {key.fuse!r}; "
                          f"available: {FUSE_MODES}")
+    if is_reversible(key.wavelet):
+        return _build_reversible(key, backend)
+    if key.boundary in B.REVERSIBLE_KEY["boundary"]:
+        raise ValueError(
+            f"boundary {key.boundary!r} is the reversible wavelets' "
+            f"({sorted(REVERSIBLE)}); wavelet {key.wavelet!r} runs on "
+            f"{BOUNDARIES}")
     if key.boundary not in BOUNDARIES:
         raise ValueError(f"unknown boundary {key.boundary!r}; "
                          f"available: {BOUNDARIES}")

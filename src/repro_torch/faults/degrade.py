@@ -11,7 +11,9 @@ reference package's does:
    failures recover in place;
 2. **degrade** down a capability-checked chain
    (``fuse: pyramid → levels → none``, then
-   ``backend: cuda → conv → torch``), re-resolving the plan through the
+   ``backend: cuda → conv → torch``; a reversible wavelet's plan goes
+   straight to the plain integer path, ``torch``, and is held to
+   equality), re-resolving the plan through the
    LRU cache and **verifying** the fallback output against the
    ``torch/none`` reference (the exactness contract) before accepting it;
 3. record every hop in ``repro_fallbacks_total{from, to, site}``.
@@ -58,6 +60,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch import telemetry as T
+from repro_torch.core.wavelets import is_reversible
 from repro_torch.faults import inject
 from repro_torch.faults.policy import DeadlineExceeded, retry_call
 
@@ -139,7 +142,10 @@ def degradation_chain(key) -> List:
         seen.add(tag)
         out.append(cand)
 
-    demotions = FUSE_DEMOTIONS.get(key.fuse, ("none",))
+    # a reversible plan runs one kernel launch a level at every fuse
+    # mode: its one hop is the plain integer path (backend "torch")
+    demotions = () if is_reversible(key.wavelet) \
+        else FUSE_DEMOTIONS.get(key.fuse, ("none",))
     for f in demotions:
         admit(dataclasses.replace(key, fuse=f))
     start = (BACKEND_CHAIN.index(key.backend) + 1
@@ -159,7 +165,11 @@ def degradation_chain(key) -> List:
 def _tolerance(key) -> Tuple[float, float]:
     """The exactness contract across chain hops: same transform, other
     path.  Float32 paths agree to fp-accumulation order; bf16 compute
-    is inherently coarser."""
+    is inherently coarser; integer (reversible) paths agree exactly, so
+    the reversible lifting kernel's hop to the plain integer path is
+    held to equality."""
+    if key.compute_dtype == "int32":
+        return 0.0, 0.0
     if key.compute_dtype == "bfloat16":
         return 2e-2, 2e-2
     return 1e-3, 1e-4

@@ -26,6 +26,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 from repro_torch import telemetry as T
 from repro_torch.core import optimize as O
 from repro_torch.core import poly as P
+from repro_torch.core.wavelets import is_reversible
 
 #: bytes the plane copies around the window kernel write, per site:
 #: ``split`` where a level's polyphase planes (strided views of its
@@ -175,6 +176,13 @@ def plan_hbm_bytes(plan, op: str = "forward") -> int:
         return 2 * numel * itemsize
     inverse = op == "inverse"
     h, w = key.shape[-2:]
+    if is_reversible(key.wavelet):
+        # each level reads its image (or its four subbands) once and
+        # writes its four subbands (or its image) once
+        return sum(2 * images * hl * wl * itemsize
+                   for (hl, wl), images in zip(
+                       (s.image_shape for s in plan.level_specs),
+                       plan.level_images))
     if plan.pyramid is not None:
         pw = plan.pyramid.inv_kernel if inverse else plan.pyramid.fwd_kernel
         per_image = pyramid_hbm_bytes((h, w), itemsize, pw.level_blocks,

@@ -554,7 +554,8 @@ LAUNCHES = T.counter(
     "repro_kernel_launches_total",
     "launches of the hand-written CUDA kernels (tap_window = K1, "
     "pyramid_forward = K2, pyramid_inverse = K3, temporal_lift = the "
-    "3-D transform's temporal pass)",
+    "3-D transform's temporal pass, rev_lift = a level of a reversible "
+    "wavelet)",
     labelnames=("kernel",), gated=False)
 
 

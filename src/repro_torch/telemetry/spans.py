@@ -13,7 +13,7 @@ Chrome-trace-event JSON loadable in Perfetto
 **Device time.**  A kernel launch returns long before the card has run
 it, so a host clock around device work times the launch, not the work.
 The spans that wrap device work (``execute.*``, ``level.*``,
-``pyramid.launch``, ``packet.*``, ``level3.*``) open through
+``pyramid.launch``, ``packet.*``, ``level3.*``, ``revlift.*``) open through
 :func:`device_span` with the plan's device: on a CUDA device the span
 records a CUDA event pair on the device's current stream, one at entry
 and one at exit, and its ``duration`` is the time the card took between

@@ -1,6 +1,6 @@
 """The CUDA kernels on the card (the window kernel K1, the fused-pyramid
-kernels K2/K3 and the temporal lifting kernel), against their plain
-versions; the packet and 3-D paths through K1 against the same calls on
+kernels K2/K3, the temporal lifting kernel and the reversible lifting
+kernel), against their plain versions; the packet and 3-D paths through K1 against the same calls on
 the CPU; the conv backend on the card at full fp32; and
 ``backend="auto"`` and the server
 on the card (cold rule, warmed store, served results bit for bit, two
@@ -867,3 +867,52 @@ def test_family_train_step_on_the_card(cuda_device, arch):
     assert (float(m["aux"]) > 0) == (cfg.family == "moe")
     assert all(bool((a != b).any())
                for a, b in zip(before, pytree.leaves(state.params)))
+
+
+REVERSIBLE = dict(wavelet="rev53", scheme="sep-lifting",
+                  boundary="symmetric")
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2), (3, 66, 130), (5, 96, 200),
+                                   (2, 2, 1026), (1, 1030, 6),
+                                   (2, 3, 64, 64), (1871, 512, 512)])
+def test_rev_lift_equals_the_plain_path(cuda_device, shape):
+    """The reversible lifting kernel against the plain integer path on
+    the same int32 tensors, forward and inverse, bit for bit: partial
+    tiles, 2-sample edges, batch dims and the lossless cell's series."""
+    from repro_torch.core import reversible as RV
+    from repro_torch.kernels import rev_lift as RL
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = torch.randint(-2048, 2048, shape, generator=g, device=cuda_device,
+                      dtype=torch.int32)
+    before = RL.KERNEL.launches
+    got = RL.rev_lift_forward(x)
+    want = RV.level_forward(x, "rev53")
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    back = RL.rev_lift_inverse(got)
+    assert torch.equal(back, RV.level_inverse(want, "rev53"))
+    assert torch.equal(back, x)
+    assert RL.KERNEL.launches - before == 2
+
+
+def test_rev53_runs_the_kernel_through_the_plan(cuda_device):
+    """``dwt2``/``idwt2`` of rev53 on "cuda": one launch a level and
+    direction, every subband equal to backend "torch" on the same card
+    tensors, the round trip exact, no fallback."""
+    from repro_torch.faults import degrade
+    from repro_torch.kernels import rev_lift as RL
+    g = torch.Generator(device=cuda_device).manual_seed(28)
+    x = torch.randint(-2048, 2048, (4, 512, 512), generator=g,
+                      device=cuda_device, dtype=torch.int32)
+    hops = degrade.stats()["fallbacks"]
+    before = RL.KERNEL.launches
+    pyr = R.dwt2(x, levels=5, fuse="levels", **REVERSIBLE)
+    rec = R.idwt2(pyr, fuse="levels", **REVERSIBLE)
+    assert RL.KERNEL.launches - before == 10
+    plain = R.dwt2(x, levels=5, backend="torch", **REVERSIBLE)
+    for a, b in zip([pyr.ll] + [t for d in pyr.details for t in d],
+                    [plain.ll] + [t for d in plain.details for t in d]):
+        assert torch.equal(a, b)
+    assert torch.equal(rec, x)
+    assert degrade.stats()["fallbacks"] == hops
