@@ -43,6 +43,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
              launches, every level's subbands against the plain path and
              the reconstruction equal to the input (max |diff| 0 each),
              with the kernel's and the plain path's times at level 0;
+2e. plane fold — K1 reading a level's image (the split folded into its
+             gather) and writing it back (the merge folded into its sink)
+             against the plane layout (the planes copied contiguous, the
+             output interleaved by ``from_planes``) and against the plain
+             version, level by level at ns-polyconv "none" and "scheme":
+             the slice cell's request (932x512x512 float32, 5 levels), one
+             temporal half-band of the volume cell's (1864x512x512 through
+             the temporal lifting kernel, 932x512x512, 3 levels) and a
+             3x148x212 image at 2 levels (ragged tiles), plus float16/
+             bfloat16 I/O
+             and bfloat16 compute and planes narrower than the halo at
+             tiny sizes: max |diff| 0 everywhere; then K1's level-0
+             launches at the slice cell's shape timed in both layouts
+             (the forward's first, the inverse's last), and one request of
+             each K1 cell through ``dwt2``/``idwt2`` and ``dwt3``/
+             ``idwt3``: ``repro_plane_folds_total`` 5 + 5 and 6 + 6, no
+             plane-copy bytes, 20 and 24 K1 launches;
 3. main    — ``repro_torch.dwt2`` / ``idwt2`` at B=8, 2048x2048, float32,
              3 levels, cdf97 on backend "cuda": ns-polyconv at fuse
              "none", "scheme", "levels" and "pyramid", sep-lifting at
@@ -340,6 +357,13 @@ REVERSIBLE_SHAPES = ((1, 2, 2), (2, 4, 6), (3, 66, 130), (5, 96, 200),
                      (2, 2, 1026), (1, 1030, 6), (2, 3, 64, 64))
 REVERSIBLE_TIMED = (1871, 512, 512)
 REVERSIBLE_LEVELS = 5
+# phase 2e: the K1 cells' requests (slice2d's images, vol3d's volume and
+# its temporal half-band), their levels, and the small cases
+FOLD_SLICES, FOLD_SLICE_LEVELS = (932, 512, 512), 5
+FOLD_VOLUME, FOLD_VOLUME_LEVELS = (1864, 512, 512), 3
+FOLD_SMALL = (((3, 148, 212), 2), ((2, 6, 10), 1), ((2, 3, 8, 12), 2))
+FOLD_NARROW = (("float16", "float32"), ("bfloat16", "float32"),
+               ("float32", "bfloat16"), ("bfloat16", "bfloat16"))
 
 
 class SmokeFailure(RuntimeError):
@@ -704,6 +728,155 @@ def phase_reversible_kernel(torch, R, RL, device, cpu, gen, timer):
                            plain_inverse_ms=row["inverse"][1],
                            bound_ms=bound, bound_by="bytes",
                            library_ms=None))
+
+
+def _fold_level(torch, PP, TW, S, x, spec):
+    """One level of ``x`` both ways through K1 in the image layout (the
+    engine's path), in the plane layout (the planes copied contiguous,
+    the inverse's output interleaved by ``from_planes``) and through the
+    plain version; returns (largest |diff|, the level's planes)."""
+    def planes_of(img):
+        return [p.reshape((-1,) + p.shape[-2:]).contiguous()
+                for p in S.to_planes(img)]
+
+    def chain(run, planes, windows):
+        for win in windows:
+            planes = run(win, planes)
+        return planes
+
+    got = PP.apply_steps_cuda(spec.fwd_steps, x, windows=spec.fwd_windows)
+    flat = [g.reshape((-1,) + g.shape[-2:]) for g in got]
+    worst = 0.0
+    for run in (TW.tap_window, TW.tap_window_ref):
+        want = chain(run, planes_of(x), spec.fwd_windows)
+        worst = max([worst] + [max_abs(a, b) for a, b in zip(flat, want)])
+    back = PP.apply_steps_cuda(spec.inv_steps, got, windows=spec.inv_windows,
+                               image_out=True)
+    for run in (TW.tap_window, TW.tap_window_ref):
+        want = S.from_planes(chain(run, flat, spec.inv_windows))
+        worst = max(worst, max_abs(back.reshape(want.shape), want))
+    check(back.shape == x.shape and all(g.shape[:-2] == x.shape[:-2]
+                                        for g in got),
+          f"image layout shapes {tuple(back.shape)} / "
+          f"{[tuple(g.shape) for g in got]} for an image {tuple(x.shape)}")
+    return worst, got
+
+
+def _fold_levels(torch, R, PP, TW, S, x, levels, fuse, device, cdt):
+    """:func:`_fold_level` down ``levels`` levels of ``x`` (each level on
+    the LL of the one before); returns the largest |diff|."""
+    plan = R.get_plan(shape=tuple(x.shape), levels=levels,
+                      scheme="ns-polyconv", fuse=fuse, backend="cuda",
+                      dtype=str(x.dtype).split(".")[-1], compute_dtype=cdt,
+                      device=device)
+    worst = 0.0
+    for spec in plan.level_specs:
+        d, planes = _fold_level(torch, PP, TW, S, x, spec)
+        worst = max(worst, d)
+        x = planes[0]
+    return worst
+
+
+def phase_plane_fold(torch, R, PP, TW, TL, device, cpu, gen, timer):
+    """K1 in the image layout vs the plane layout and the plain version,
+    its level-0 times in both layouts, and the fold counters of one
+    request of each K1 cell; returns K1's launches."""
+    print("== phase 2e: K1 reading and writing the image (split and merge "
+          "folded)", flush=True)
+    from repro_torch.compiler import temporal as TP
+    from repro_torch.core import schemes as S
+    t0 = time.perf_counter()
+    before = TW.KERNEL.launches
+    slices = (4, 32, 32) if cpu else FOLD_SLICES
+    volume = (8, 32, 32) if cpu else FOLD_VOLUME
+    slice_levels = 2 if cpu else FOLD_SLICE_LEVELS
+    volume_levels = 2 if cpu else FOLD_VOLUME_LEVELS
+    images = [("slice2d request", torch.randn(slices, generator=gen)
+               .to(device), slice_levels)]
+    vol = torch.randn(volume, generator=gen).to(device)
+    lo, hi = TL.temporal_lift_forward(vol, TP.compile_temporal("cdf97"))
+    del vol, hi
+    images.append(("vol3d half-band", lo, volume_levels))
+    images += [("small", torch.randn(shape, generator=gen).to(device),
+                levels)
+               for shape, levels in FOLD_SMALL]
+    worst = 0.0
+    for (name, x, levels), fuse in itertools.product(images,
+                                                     ("none", "scheme")):
+        d = _fold_levels(torch, R, PP, TW, S, x, levels, fuse, device,
+                         "float32")
+        print(f"{name} {'x'.join(map(str, x.shape))} fuse {fuse!r}, "
+              f"{levels} levels: image layout vs plane layout and plain "
+              f"version: max |diff| {d!r}")
+        worst = max(worst, d)
+    for io, cdt in FOLD_NARROW:
+        x = torch.randn((2, 6, 40), generator=gen).to(device,
+                                                      getattr(torch, io))
+        for fuse in ("none", "scheme"):
+            d = _fold_levels(torch, R, PP, TW, S, x, 1, fuse, device, cdt)
+            print(f"io {io}, compute {cdt}, fuse {fuse!r}: max |diff| "
+                  f"{d!r}")
+            worst = max(worst, d)
+    check(worst == 0.0, f"K1's image layout disagrees with its plane "
+                        f"layout or its plain version: max |diff| {worst}")
+    print(f"image and plane layouts in {time.perf_counter() - t0:.1f} s: "
+          f"max |diff| {worst!r}")
+    # K1's level-0 launches at the slice cell's shape, both layouts
+    x = images[0][1]
+    spec = R.get_plan(shape=tuple(x.shape), levels=slice_levels,
+                      scheme="ns-polyconv", fuse="none", backend="cuda",
+                      device=device).level_specs[0]
+    planes = [p.contiguous() for p in S.to_planes(x)]
+    first, last = spec.fwd_windows[0], spec.inv_windows[-1]
+    subbands = TW.tap_window(first, planes)
+    rows = {}
+    for name, run in (
+            ("forward first, image in", lambda: TW.tap_window(first, x)),
+            ("forward first, planes in",
+             lambda: TW.tap_window(first, planes)),
+            ("inverse last, image out",
+             lambda: TW.tap_window(last, subbands, image_out=True)),
+            ("inverse last, planes out",
+             lambda: TW.tap_window(last, subbands))):
+        rows[name] = timer.ms(run, reps=TIMING_REPS)
+        print(f"K1 level 0 {name} {'x'.join(map(str, x.shape))}: "
+              f"{rows[name]:.4f} ms")
+    for a, b in (("forward first, image in", "forward first, planes in"),
+                 ("inverse last, image out", "inverse last, planes out")):
+        print(f"{a} / {b}: {rows[a] / rows[b]:.4f}")
+    del planes, subbands
+    # one request of each K1 cell: the counters
+    launches = TW.KERNEL.launches - before
+    for name, run, folds, k1 in (
+            ("slice2d", lambda: R.idwt2(R.dwt2(
+                x, levels=slice_levels, scheme="ns-polyconv", fuse="none",
+                backend="cuda", device=device), scheme="ns-polyconv",
+                fuse="none", backend="cuda", device=device),
+             slice_levels, 4 * slice_levels),
+            ("vol3d", lambda: R.idwt3(R.dwt3(
+                torch.randn(volume, generator=gen).to(device),
+                levels=volume_levels, scheme="ns-polyconv", fuse="none",
+                backend="cuda", device=device), scheme="ns-polyconv",
+                fuse="none", backend="cuda", device=device),
+             2 * volume_levels, 8 * volume_levels)):
+        n0 = TW.KERNEL.launches
+        f0 = {op: PP.PLANE_FOLDS.value(op=op) for op in ("split", "merge")}
+        b0 = sum(PP.PLANE_COPY_BYTES.value(op=op)
+                 for op in ("split", "merge"))
+        run()
+        got = {op: PP.PLANE_FOLDS.value(op=op) - f0[op]
+               for op in ("split", "merge")}
+        copied = sum(PP.PLANE_COPY_BYTES.value(op=op)
+                     for op in ("split", "merge")) - b0
+        n = TW.KERNEL.launches - n0
+        launches += n
+        print(f"{name} request: repro_plane_folds_total {got}, plane copy "
+              f"bytes {copied}, K1 launches {n}")
+        check(got == {"split": folds, "merge": folds} and copied == 0,
+              f"{name}: folds {got} (want {folds} each), copied {copied}")
+        check(n == (0 if cpu else k1), f"{name}: {n} K1 launches")
+    del images, x, lo
+    return launches
 
 
 def phase_pyramid_kernel(torch, R, PW, device, cpu, gen):
@@ -2283,25 +2456,32 @@ RESTART_RTOL = 1e-5
 
 @contextlib.contextmanager
 def k1_calls(TW, fn):
-    """Route every K1 call through ``fn(kernel, win, planes)`` (the
-    executor looks ``tap_window`` up on the module at each call)."""
+    """Route every K1 call through ``fn(kernel, win, src, **kw)`` (the
+    executor looks ``tap_window`` up on the module at each call; ``src``
+    is four planes or an image, ``kw`` the output layout)."""
     kernel = TW.tap_window
-    TW.tap_window = lambda win, planes: fn(kernel, win, planes)
+    TW.tap_window = lambda win, src, **kw: fn(kernel, win, src, **kw)
     try:
         yield
     finally:
         TW.tap_window = kernel
 
 
+def outputs(out):
+    """A K1 call's outputs as a tuple: its four planes, or its image."""
+    return (out,) if hasattr(out, "shape") else tuple(out)
+
+
 def versus_plain(TW, seen):
     """A K1 shim for :func:`k1_calls`: each call's outputs compared with
-    its plain version on the same planes, the largest |diff| and the
-    calls compared counted in ``seen`` (keys "worst" and "calls")."""
-    def shim(kernel, win, planes):
-        out = kernel(win, planes)
-        ref = TW.tap_window_ref(win, planes)
-        seen["worst"] = max([seen["worst"]] + [max_abs(a, b)
-                                               for a, b in zip(out, ref)])
+    its plain version on the same input and layout, the largest |diff|
+    and the calls compared counted in ``seen`` (keys "worst" and
+    "calls")."""
+    def shim(kernel, win, src, **kw):
+        out = kernel(win, src, **kw)
+        ref = TW.tap_window_ref(win, src, **kw)
+        seen["worst"] = max([seen["worst"]] + [
+            max_abs(a, b) for a, b in zip(outputs(out), outputs(ref))])
         seen["calls"] += 1
         return out
     return shim
@@ -2643,13 +2823,13 @@ def phase_lm(torch, R, TW, PW, device, cpu):
     # K1's share of compression: CUDA events around each K1 launch
     events = []
 
-    def timed(kernel, win, planes):
+    def timed(kernel, win, src, **kw):
         if not cuda:
-            return kernel(win, planes)
+            return kernel(win, src, **kw)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = kernel(win, planes)
+        out = kernel(win, src, **kw)
         b.record()
         events.append((a, b))
         return out
@@ -3965,6 +4145,8 @@ def main(argv=None):
                                          timer)
     max_err["rev_lift"] = reversible["max_abs_err"]
     no_fallbacks("phase 2d")
+    n_fold = phase_plane_fold(torch, R, PP, TW, TL, device, cpu, gen, timer)
+    no_fallbacks("phase 2e")
     worst = phase_pyramid_kernel(torch, R, PW, device, cpu, gen)
     max_err.update(pyramid_forward=worst["pyramid_forward"],
                    pyramid_inverse=worst["pyramid_inverse"])
@@ -3983,6 +4165,7 @@ def main(argv=None):
             "pyramid_forward": 1, "pyramid_inverse": 1}
         check(launched == want, f"main path launched {launched}, expected "
                                 f"{want}")
+    launched["tap_window"] += n_fold
     for name, n in phase_telemetry(torch, R, TW, PW, device, cpu, gen, x,
                                    timer).items():
         launched[name] += n

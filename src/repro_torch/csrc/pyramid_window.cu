@@ -17,7 +17,7 @@
 // halo, gathered mod the level's dims and staged through cp.async.  All
 // blocks meet at a grid-wide barrier before the next level reads what
 // this one wrote.  So the work is that of the per-level path, without its
-// split and merge copies and launch gaps; the LL between levels goes
+// launch gaps; the LL between levels goes
 // through a scratch plane in device memory (mostly the 50 MB L2), stored
 // in the I/O dtype, the per-level path's rounding between levels.
 //
@@ -70,30 +70,6 @@ __device__ __forceinline__ const int* load_level(const int* table, int l,
 
 // --- K2 ----------------------------------------------------------------
 
-// Plane j of level l's image: window sample (y, x) of the tile is image
-// pixel (2 (y0 - r + y) + dy, 2 (x0 - r + x) + dx) with (dy, dx) =
-// (j >> 1, j & 1); H_l and W_l are even, so the wrap of the even pixel
-// keeps the phase and the odd one never needs its own.
-template <typename T>
-struct SplitGather {
-  using Idx = size_t;
-  const T* img;
-  int h, w;       // the level's image
-  Geom g;         // plane-space tile
-  __device__ __forceinline__ Idx index(int y, int x) const {
-    int gy = 2 * (g.y0 - g.r + y);
-    int gx = 2 * (g.x0 - g.r + x);
-    if (!g.interior) {
-      gy = wrap(gy, h);
-      gx = wrap(gx, w);
-    }
-    return g.base * 4 + static_cast<size_t>(gy) * w + gx;
-  }
-  __device__ __forceinline__ const T* ptr(int j, Idx i) const {
-    return img + i + static_cast<size_t>(j >> 1) * w + (j & 1);
-  }
-};
-
 template <typename T>
 struct SplitTiles {
   const T* img;
@@ -134,57 +110,14 @@ pyramid_forward_kernel(const int* __restrict__ table, void* __restrict__ x,
 
 // --- K3 ----------------------------------------------------------------
 
-// The level's four input planes (LL, HL, LH, HH), gathered mod the plane
-// dims at the edges.
-template <typename T>
-struct SubbandGather {
-  using Idx = size_t;
-  InPlanes in;
-  Geom g;
-  __device__ __forceinline__ Idx index(int y, int x) const {
-    int gy = g.y0 - g.r + y;
-    int gx = g.x0 - g.r + x;
-    if (!g.interior) {
-      gy = wrap(gy, g.hp);
-      gx = wrap(gx, g.wp);
-    }
-    return g.base + static_cast<size_t>(gy) * g.wp + gx;
-  }
-  __device__ __forceinline__ const T* ptr(int j, Idx i) const {
-    return static_cast<const T*>(in.p[j]) + i;
-  }
-};
-
-// Output k at plane position (gy, gx) of the tile core goes to pixel
-// (2 gy + (k >> 1), 2 gx + (k & 1)) of the level's 2hp x 2wp image, in the
-// I/O dtype; the ragged edge is masked, as store_core masks it.
-template <typename T>
-struct InterleaveSink {
-  T* img;
-  Geom g;
-  __device__ __forceinline__ void operator()(int mask, int y, int x,
-                                             float v) const {
-    if (y < g.r || y >= g.r + g.bh || x < g.r || x >= g.r + g.bw) return;
-    const int gy = g.y0 + y - g.r;
-    const int gx = g.x0 + x - g.r;
-    if (gy >= g.hp || gx >= g.wp) return;
-    const size_t w = 2 * static_cast<size_t>(g.wp);
-    T* p = img + g.base * 4 + 2 * static_cast<size_t>(gy) * w + 2 * gx;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (mask & (1 << k)) from_float(p + (k >> 1) * w + (k & 1), v);
-    }
-  }
-};
-
 template <typename T>
 struct SubbandTiles {
   InPlanes in;
   T* img;
   TileGrid grid;
   int n_tiles;
-  __device__ __forceinline__ SubbandGather<T> gather(int t) const {
-    return SubbandGather<T>{in, grid.geom(t)};
+  __device__ __forceinline__ PlaneGather<T> gather(int t) const {
+    return PlaneGather<T>{in, grid.geom(t)};
   }
   __device__ __forceinline__ InterleaveSink<T> sink(int t) const {
     return InterleaveSink<T>{img, grid.geom(t)};

@@ -30,6 +30,11 @@
 //           const T* ptr(int j, Idx) const   (input plane j, device memory)
 //   Sink    void operator()(int mask, int y, int x, float v) const
 //           (window position (y, x) of an output node, `mask` its bits)
+// The fused-pyramid kernels' policies are at the end of this file: four
+// planes (PlaneGather, CoreSink), an image read as its polyphase planes
+// (SplitGather) and four outputs written as one image (InterleaveSink);
+// the window kernel reads and writes either layout through one strided
+// policy with the same addresses (tap_window.cu).
 //
 // Arithmetic: every node starts at -0.0 (x + -0.0 == x for every x) and
 // adds round(read * c) left to right with __fmul_rn / __fadd_rn (no FMA
@@ -324,6 +329,77 @@ struct CoreSink {
   __device__ __forceinline__ void operator()(int mask, int y, int x,
                                              float v) const {
     store_core<T>(out, mask, g, y, x, v);
+  }
+};
+
+// --- address policies of the fused-pyramid kernels --------------------
+
+// Input policy: four (B, hp, wp) planes, gathered mod hp / mod wp at the
+// edges (K3's LL, HL, LH, HH).
+template <typename T>
+struct PlaneGather {
+  using Idx = size_t;
+  InPlanes in;
+  Geom g;
+  __device__ __forceinline__ Idx index(int y, int x) const {
+    int gy = g.y0 - g.r + y;
+    int gx = g.x0 - g.r + x;
+    if (!g.interior) {
+      gy = wrap(gy, g.hp);
+      gx = wrap(gx, g.wp);
+    }
+    return g.base + static_cast<size_t>(gy) * g.wp + gx;
+  }
+  __device__ __forceinline__ const T* ptr(int j, Idx i) const {
+    return static_cast<const T*>(in.p[j]) + i;
+  }
+};
+
+// Input policy of the split folded into the gather (K2): for plane j of
+// level l's image, window sample (y, x) of the tile is image
+// pixel (2 (y0 - r + y) + dy, 2 (x0 - r + x) + dx) with (dy, dx) =
+// (j >> 1, j & 1); H_l and W_l are even, so the wrap of the even pixel
+// keeps the phase and the odd one never needs its own.
+template <typename T>
+struct SplitGather {
+  using Idx = size_t;
+  const T* img;
+  int h, w;       // the level's image
+  Geom g;         // plane-space tile
+  __device__ __forceinline__ Idx index(int y, int x) const {
+    int gy = 2 * (g.y0 - g.r + y);
+    int gx = 2 * (g.x0 - g.r + x);
+    if (!g.interior) {
+      gy = wrap(gy, h);
+      gx = wrap(gx, w);
+    }
+    return g.base * 4 + static_cast<size_t>(gy) * w + gx;
+  }
+  __device__ __forceinline__ const T* ptr(int j, Idx i) const {
+    return img + i + static_cast<size_t>(j >> 1) * w + (j & 1);
+  }
+};
+
+// Output policy of the merge folded into the sink (K3): output k at plane
+// position (gy, gx) of the tile core goes to pixel
+// (2 gy + (k >> 1), 2 gx + (k & 1)) of the level's 2hp x 2wp image, in the
+// I/O dtype; the ragged edge is masked, as store_core masks it.
+template <typename T>
+struct InterleaveSink {
+  T* img;
+  Geom g;
+  __device__ __forceinline__ void operator()(int mask, int y, int x,
+                                             float v) const {
+    if (y < g.r || y >= g.r + g.bh || x < g.r || x >= g.r + g.bw) return;
+    const int gy = g.y0 + y - g.r;
+    const int gx = g.x0 + x - g.r;
+    if (gy >= g.hp || gx >= g.wp) return;
+    const size_t w = 2 * static_cast<size_t>(g.wp);
+    T* p = img + g.base * 4 + 2 * static_cast<size_t>(gy) * w + 2 * gx;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (mask & (1 << k)) from_float(p + (k >> 1) * w + (k & 1), v);
+    }
   }
 };
 

@@ -84,20 +84,17 @@ def torch_level_inverse(planes, spec, key):
 # cuda backend: the hand-written window kernel
 # ---------------------------------------------------------------------------
 
+# The first launch of a forward level reads the image (the split folded
+# into K1's gather) and the last launch of an inverse level writes it (the
+# merge folded into K1's sink): no copy around the kernel.
+
 def cuda_level_forward(x, spec, key):
-    return PP.apply_steps_cuda(spec.fwd_steps, S.to_planes(x),
-                               windows=spec.fwd_windows)
+    return PP.apply_steps_cuda(spec.fwd_steps, x, windows=spec.fwd_windows)
 
 
 def cuda_level_inverse(planes, spec, key):
-    planes = PP.apply_steps_cuda(spec.inv_steps, planes,
-                                 windows=spec.inv_windows)
-    # the merge, inside its span, counting what its stacks write: twice
-    # the image (the two half interleaves, then the whole)
-    with T.device_span("planes.merge", key.device):
-        x = S.from_planes(planes)
-    PP.MERGE_BYTES.inc(2 * x.numel() * x.element_size())
-    return x
+    return PP.apply_steps_cuda(spec.inv_steps, planes,
+                               windows=spec.inv_windows, image_out=True)
 
 
 # ---------------------------------------------------------------------------

@@ -66,15 +66,14 @@ def apply_scheme_cuda(x, *, wavelet: str = "cdf97",
     kfuse = _kernel_fuse(fuse)
     opt = bool(optimize) and not inverse
     if inverse:
-        planes = tuple(x)
+        x = tuple(x)
+        hp, wp = x[0].shape[-2:]
     else:
-        planes = S.to_planes(x)
-    hp, wp = planes[0].shape[-2:]
+        hp, wp = x.shape[-2] // 2, x.shape[-1] // 2
     windows = _windows(wavelet, scheme, opt, bool(inverse), kfuse, tap_opt,
                        compute_dtype, int(hp), int(wp))
-    out = PP.apply_steps_cuda(scheme_steps(wavelet, scheme, opt, inverse),
-                              planes, windows=windows)
-    return S.from_planes(out) if inverse else out
+    return PP.apply_steps_cuda(scheme_steps(wavelet, scheme, opt, inverse),
+                               x, windows=windows, image_out=bool(inverse))
 
 
 def scheme_stats(wavelet: str, scheme: str, optimize: bool,
@@ -89,8 +88,9 @@ def scheme_stats(wavelet: str, scheme: str, optimize: bool,
     executes (absent under ``tap_opt="off"``, as in the reference).
     ``launches`` is the reference's ``pallas_calls``; ``hbm_bytes`` is
     the port's model of the window kernel
-    (:func:`~repro_torch.kernels.polyphase.scheme_hbm_bytes`, split or
-    merge included), at the block the SMEM guard picks.
+    (:func:`~repro_torch.kernels.polyphase.scheme_hbm_bytes`; K1 reads
+    the image and writes it back itself, so no split or merge), at the
+    block the SMEM guard picks.
     """
     sch = (O.build_optimized(wavelet, scheme) if optimize
            else S.build_scheme(wavelet, scheme))

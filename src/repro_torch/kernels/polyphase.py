@@ -15,7 +15,8 @@ model drives the hand-written CUDA window kernel
   divide by);
 * :func:`pyramid_out_levels` — the fused-pyramid kernels' subband order;
 * :func:`apply_steps_cuda` — one launch per step (``fuse="none"``, the
-  paper's barrier count) or one per level (``fuse="scheme"``).
+  paper's barrier count) or one per level (``fuse="scheme"``), reading a
+  level's image and writing it back without a copy around the kernel.
 """
 from __future__ import annotations
 
@@ -29,16 +30,23 @@ from repro_torch.core import poly as P
 from repro_torch.core.wavelets import is_reversible
 
 #: bytes the plane copies around the window kernel write, per site:
-#: ``split`` where a level's polyphase planes (strided views of its
-#: image) are made contiguous for K1, ``merge`` where a K1 level inverse
-#: interleaves its four planes back into an image
-#: (:func:`repro_torch.engine.executor.cuda_level_inverse`)
+#: ``split`` where what a level hands K1 (its image, or its planes) is
+#: not contiguous and is copied so; ``merge`` has no site left, since K1
+#: writes an inverse level's image itself
 PLANE_COPY_BYTES = T.counter(
     "repro_plane_copy_bytes_total",
     "bytes written by the plane copies around the window kernel",
     labelnames=("op",))
 SPLIT_BYTES = PLANE_COPY_BYTES.bind(op="split")
-MERGE_BYTES = PLANE_COPY_BYTES.bind(op="merge")
+#: levels whose split (K1's first launch read the image) or merge (its
+#: last launch wrote the image) the window kernel absorbed, one add a
+#: level
+PLANE_FOLDS = T.counter(
+    "repro_plane_folds_total",
+    "levels whose polyphase split or merge the window kernel absorbed",
+    labelnames=("op",))
+SPLIT_FOLDS = PLANE_FOLDS.bind(op="split")
+MERGE_FOLDS = PLANE_FOLDS.bind(op="merge")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,16 +131,18 @@ def pyramid_hbm_bytes(shape: Tuple[int, int], itemsize: int,
 
 def scheme_hbm_bytes(programs: Sequence, shape: Tuple[int, int],
                      itemsize: int, block: Tuple[int, int],
-                     split_merge: bool = True) -> int:
+                     split_merge: bool = False) -> int:
     """Modelled device-memory bytes of one transform level on a (H, W)
     image through the window kernel, one entry of ``programs`` per launch.
 
     Per launch: every block reads its four ``(bh+2r) x (bw+2r)`` windows
     (overlap counted, ragged edge included: the kernel gathers them with
     mod indexing from the unpadded planes) and writes four ``bh x bw``
-    blocks, masked to the plane.  ``split_merge`` counts the polyphase
-    deinterleave (forward) / reinterleave (inverse) that runs outside the
-    kernel: one extra read + write of the full image per level.
+    blocks, masked to the plane.  ``split_merge`` adds a polyphase
+    deinterleave (forward) / reinterleave (inverse) run outside the
+    kernel, one extra read + write of the full image per level, as the
+    reference's Pallas path runs them; the port's K1 reads the image and
+    writes it back itself, so by default none is counted.
     """
     h, w = shape
     hp, wp = h // 2, w // 2
@@ -232,15 +242,39 @@ def tiled_hbm_bytes(plan, op: str, itemsize: int) -> int:
     return window_bytes + (image + windows + cores + image) * itemsize
 
 
-def apply_steps_cuda(steps: Sequence[StepSpec], planes, *,
+def _contiguous(ts):
+    """``ts`` flattened to ``(B, h, w)`` and contiguous: views where they
+    are contiguous already, else one copy each, made inside a
+    ``planes.split`` span and counted in :data:`SPLIT_BYTES`."""
+    if all(t.is_contiguous() for t in ts):
+        return tuple(t.reshape((-1,) + t.shape[-2:]) for t in ts)
+    with T.device_span("planes.split", ts[0].device):
+        out = tuple(t.reshape((-1,) + t.shape[-2:]).contiguous()
+                    for t in ts)
+    SPLIT_BYTES.inc(sum(q.numel() * q.element_size()
+                        for t, q in zip(ts, out)
+                        if q.data_ptr() != t.data_ptr()))
+    return out
+
+
+def apply_steps_cuda(steps: Sequence[StepSpec], x, *,
                      fuse: str = "none", compute_dtype: str = "float32",
                      tap_opt: str = "full",
-                     windows: Optional[Tuple] = None):
-    """Execute a scheme's steps on the four polyphase planes through the
-    window kernel.
+                     windows: Optional[Tuple] = None,
+                     image_out: bool = False):
+    """Execute a scheme's steps through the window kernel, on one
+    level's image or on its four polyphase planes.
 
-    ``planes`` may carry arbitrary leading batch dims ``(..., hp, wp)``;
-    they are flattened into the kernel's batch grid dimension.
+    ``x`` is either the level's image ``(..., H, W)`` (H and W even),
+    which the first launch reads as its four polyphase planes (the split
+    folded into the kernel's gather), or the four planes
+    ``(..., H/2, W/2)``.  Leading batch dims are flattened into the
+    kernel's batch grid dimension.  Returns the four output planes or,
+    with ``image_out``, the image ``(..., H, W)`` the last launch
+    interleaves them into (the merge folded into its sink).  Each level
+    whose split or merge the kernel absorbed adds one to
+    :data:`PLANE_FOLDS`; an input that is not contiguous is copied first
+    (:data:`SPLIT_BYTES`).
 
     fuse="none"   — paper-faithful: one launch per step; the step count
                     is the paper's barrier count.
@@ -251,29 +285,43 @@ def apply_steps_cuda(steps: Sequence[StepSpec], planes, *,
     the lowered raw walk (bit-identical to walking the matrices).
     Pre-encoded ``windows`` (one
     :class:`~repro_torch.kernels.tap_window.WindowProgram` per launch, as a
-    plan holds them) skip compilation and the SMEM guard.  On CPU tensors the kernel's plain version
-    runs instead (see :func:`~repro_torch.kernels.tap_window.tap_window`).
+    plan holds them) skip compilation and the SMEM guard.  On CPU tensors
+    the kernel's plain version runs instead (see
+    :func:`~repro_torch.kernels.tap_window.tap_window`).
     """
+    import torch
     from repro_torch import compiler as C
     from repro_torch.kernels import tap_window as TW
     steps = tuple(steps)
     if fuse not in ("none", "scheme"):
         raise ValueError(f"unknown fuse mode {fuse!r}")
-    planes = tuple(planes)
-    hp, wp = planes[0].shape[-2:]
+    image = isinstance(x, torch.Tensor)
+    if image:
+        if x.dim() < 2 or x.shape[-2] % 2 or x.shape[-1] % 2:
+            raise ValueError(f"apply_steps_cuda: image (..., H, W) needs "
+                             f"H and W even, got {tuple(x.shape)}")
+        batch = x.shape[:-2]
+        hp, wp = x.shape[-2] // 2, x.shape[-1] // 2
+    else:
+        x = tuple(x)
+        batch = x[0].shape[:-2]
+        hp, wp = x[0].shape[-2:]
     if windows is None:
         groups = [steps] if fuse == "scheme" else [(st,) for st in steps]
         programs = tuple(C.compile_steps(g, tap_opt) for g in groups)
         block = TW.fit_block(programs, hp, wp)
         windows = tuple(TW.encode(p, block, compute_dtype)
                         for p in programs)
-    batch = planes[0].shape[:-2]
-    with T.device_span("planes.split", planes[0].device):
-        p3 = [p.reshape((-1,) + p.shape[-2:]).contiguous() for p in planes]
-    copied = sum(q.numel() * q.element_size() for p, q in zip(planes, p3)
-                 if q.data_ptr() != p.data_ptr())
-    if copied:
-        SPLIT_BYTES.inc(copied)
-    for win in windows:
-        p3 = TW.tap_window(win, p3)
-    return tuple(p.reshape(batch + p.shape[-2:]) for p in p3)
+    if image:
+        cur = _contiguous((x,))[0]
+        SPLIT_FOLDS.inc()
+    else:
+        cur = _contiguous(x)
+    for win in windows[:-1]:
+        cur = TW.tap_window(win, cur)
+    if image_out:
+        x = TW.tap_window(windows[-1], cur, image_out=True)
+        MERGE_FOLDS.inc()
+        return x.reshape(batch + x.shape[-2:])
+    cur = TW.tap_window(windows[-1], cur)
+    return tuple(p.reshape(batch + p.shape[-2:]) for p in cur)

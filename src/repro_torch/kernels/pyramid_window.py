@@ -20,8 +20,7 @@ the levels in turn and meet at a grid-wide barrier between them.  Level
 planes, at the block the per-level path picks for that level
 (:func:`~repro_torch.kernels.tap_window.fit_block` of the level's two
 programs) and with only program ``l``'s own halo: the same term
-evaluations as ``fuse="levels"``, without its split and merge copies and
-launch gaps.  The LL between levels goes through a scratch plane in the
+evaluations as ``fuse="levels"``, without its launch gaps.  The LL between levels goes through a scratch plane in the
 I/O dtype, as the per-level path stores it.
 
 * K2 (forward), finest level first: the four planes are the polyphase

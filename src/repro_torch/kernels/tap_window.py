@@ -38,7 +38,14 @@ loads, latency.  What the design does about it:
   last wave that reads it has run (liveness at wave granularity); output
   nodes nobody reads again are written straight to device memory from
   registers; windows are gathered straight from the unpadded planes with
-  mod-``hp`` / mod-``wp`` indexing, and the ragged edge is masked.
+  mod-``hp`` / mod-``wp`` indexing, and the ragged edge is masked;
+* **no split or merge copy**: a launch reads a level's image in place of
+  its four planes (the stride-2 split folded into the gather) and may
+  write its four outputs as one image (the merge folded into the sink),
+  through one strided gather and one strided sink whose base pointers
+  and strides a runtime argument sets per tile, so the per-level path
+  copies nothing around the kernel, the walk never branches on the
+  layout, and the layouts add no instantiation to the build.
 
 One generic kernel walks an encoded table, so one build serves every
 wavelet, scheme and compile level.  Products and sums use ``__fmul_rn`` /
@@ -58,7 +65,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -66,7 +73,7 @@ import torch
 from repro_torch import telemetry as T
 from repro_torch.compiler import ir
 from repro_torch.compiler.execute import required_margins, run_window
-from repro_torch.core.schemes import coef
+from repro_torch.core.schemes import coef, to_planes
 from repro_torch.kernels.polyphase import _pick_block
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -598,6 +605,9 @@ def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tap_window_launch.argtypes = [p, i] + [p] * 8 + [i] * 11 + [p, p]
     lib.tap_window_launch.restype = i
+    lib.tap_window_launch_layout.argtypes = ([p, i] + [p] * 8 + [i] * 12
+                                             + [p, p])
+    lib.tap_window_launch_layout.restype = i
 
 
 LIBRARY = KernelLibrary(SOURCE, _bind)
@@ -608,7 +618,15 @@ KERNEL = Kernel("tap_window", LIBRARY)
 # Wrapper and plain version
 # ---------------------------------------------------------------------------
 
-def _check(win: WindowProgram, planes: Sequence[torch.Tensor]) -> None:
+#: layout bits of a launch (csrc/tap_window.cu): the input is one image
+#: (the split folded into the gather), the output one image (the merge
+#: folded into the sink)
+IMAGE_IN, IMAGE_OUT = 1, 2
+
+Source = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def _check_planes(planes: Sequence[torch.Tensor]) -> None:
     if len(planes) != 4:
         raise ValueError(f"tap_window takes 4 planes, got {len(planes)}")
     p0 = planes[0]
@@ -624,6 +642,39 @@ def _check(win: WindowProgram, planes: Sequence[torch.Tensor]) -> None:
             raise ValueError(
                 f"tap_window planes disagree: {tuple(p.shape)} {p.dtype} "
                 f"{p.device} vs {tuple(p0.shape)} {p0.dtype} {p0.device}")
+
+
+def _check_image(x: torch.Tensor) -> None:
+    if x.dim() != 3 or x.shape[-2] % 2 or x.shape[-1] % 2:
+        raise ValueError(f"tap_window image must be (B, H, W) with H and "
+                         f"W even, got {tuple(x.shape)}")
+    if x.dtype not in IO_CODES:
+        raise TypeError(f"tap_window I/O dtype {x.dtype} unsupported; "
+                        f"supported: {tuple(IO_CODES)}")
+
+
+def _source_planes(src: Source) -> Tuple[torch.Tensor, ...]:
+    """The four ``(B, hp, wp)`` planes a launch reads: ``src`` itself, or
+    the polyphase planes of a ``(B, H, W)`` image (strided views, no
+    copy), checked as the kernel checks them."""
+    if isinstance(src, torch.Tensor):
+        _check_image(src)
+        return to_planes(src)
+    planes = tuple(src)
+    _check_planes(planes)
+    return planes
+
+
+def interleave(planes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Four ``(..., hp, wp)`` planes as one ``(..., 2hp, 2wp)`` image,
+    plane ``k`` at pixels ``(2i + (k >> 1), 2j + (k & 1))``: one
+    allocation and four strided copies (the merge K1's sink does in
+    place)."""
+    p0 = planes[0]
+    out = p0.new_empty(p0.shape[:-2] + (2 * p0.shape[-2], 2 * p0.shape[-1]))
+    for k, p in enumerate(planes):
+        out[..., k >> 1::2, k & 1::2].copy_(p)
+    return out
 
 
 def window_ref(prog: ir.TapProgram, planes: Sequence[torch.Tensor],
@@ -643,47 +694,65 @@ def window_ref(prog: ir.TapProgram, planes: Sequence[torch.Tensor],
     return tuple(y.to(planes[0].dtype) for y in ys)
 
 
-def tap_window_ref(win: WindowProgram, planes: Sequence[torch.Tensor]
-                   ) -> Tuple[torch.Tensor, ...]:
+def tap_window_ref(win: WindowProgram, src: Source, *,
+                   image_out: bool = False):
     """Plain version of the kernel: :func:`run_window` over windows
-    gathered with the kernel's mod indexing (one window per plane)."""
-    _check(win, planes)
-    return window_ref(win.program, planes, win.compute_dtype)
+    gathered with the kernel's mod indexing (one window per plane) from
+    four planes or from an image's polyphase planes, the outputs as four
+    planes or, with ``image_out``, interleaved into one image
+    (:func:`interleave`)."""
+    ys = window_ref(win.program, _source_planes(src), win.compute_dtype)
+    return interleave(ys) if image_out else ys
 
 
-def tap_window(win: WindowProgram, planes: Sequence[torch.Tensor]
-               ) -> Tuple[torch.Tensor, ...]:
-    """Run one encoded program over four ``(B, hp, wp)`` planes.
+def tap_window(win: WindowProgram, src: Source, *, image_out: bool = False):
+    """Run one encoded program over four ``(B, hp, wp)`` planes, or over
+    a ``(B, 2hp, 2wp)`` image read as its four polyphase planes (the
+    split folded into the kernel's gather).  Returns the four output
+    planes or, with ``image_out``, one ``(B, 2hp, 2wp)`` image that holds
+    output ``k`` at pixels ``(2i + (k >> 1), 2j + (k & 1))`` (the merge
+    folded into the kernel's sink).
 
     CUDA tensors launch the kernel (and count one launch) or raise; CPU
     tensors run :func:`tap_window_ref`.
     """
-    _check(win, planes)
+    planes = _source_planes(src)
     dev = planes[0].device
     if dev.type == "cpu":
-        return tap_window_ref(win, planes)
+        return tap_window_ref(win, src, image_out=image_out)
     if dev.type != "cuda":
         raise ValueError(f"tap_window runs on cuda or cpu tensors, got "
                          f"{dev}")
-    for p in planes:
+    image_in = isinstance(src, torch.Tensor)
+    ins = (src,) if image_in else planes
+    for p in ins:
         if not p.is_contiguous():
-            raise ValueError("tap_window planes must be contiguous")
+            raise ValueError(f"tap_window {'image' if image_in else 'planes'}"
+                             f" must be contiguous")
     nb, hp, wp = planes[0].shape
     if win.tiles((nb, hp, wp)) >= 2 ** 31:
         raise ValueError(f"tap_window: {win.tiles((nb, hp, wp))} tiles "
                          f"exceed the kernel's int32 tile index")
     lib = KERNEL.library()
-    outs = [torch.empty_like(p) for p in planes]
+    like = planes[0]
+    if image_out:
+        outs = (like.new_empty((nb, 2 * hp, 2 * wp)),)
+    else:
+        outs = tuple(like.new_empty((nb, hp, wp)) for _ in range(4))
     table = win.device_table(dev)
     info = (ctypes.c_int * 2)()
+
+    def ptrs(ts):
+        return [t.data_ptr() for t in ts] + [None] * (4 - len(ts))
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tap_window_launch(
-            table.data_ptr(), int(table.numel()),
-            *[p.data_ptr() for p in planes], *[o.data_ptr() for o in outs],
+        err = lib.tap_window_launch_layout(
+            table.data_ptr(), int(table.numel()), *ptrs(ins), *ptrs(outs),
             nb, hp, wp, *win.block, win.halo, win.smem_bytes, win.elems,
-            IO_CODES[planes[0].dtype],
-            int(win.compute_dtype == "bfloat16"), dev.index, stream, info)
+            IO_CODES[like.dtype], int(win.compute_dtype == "bfloat16"),
+            IMAGE_IN * image_in + IMAGE_OUT * image_out, dev.index, stream,
+            info)
     LIBRARY.check(err, "tap_window")
     KERNEL.launched(info)
-    return tuple(outs)
+    return outs[0] if image_out else outs

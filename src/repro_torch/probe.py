@@ -8,7 +8,10 @@ checkout at ``DIR`` (default: this one), each a copy of
 edit, and times every variant on the main path's level-0 programs
 (cdf97, 8 x 1024 x 1024 fp32 planes: the fused ns-polyconv level, the
 ns-polyconv step, the sep-lifting step) with CUDA events, median of
-``--reps`` launches.  Variants that cut barriers or terms compute wrong
+``--reps`` launches, in each of the ``--layouts``: ``planes`` (four
+planes in and out), ``image-in`` (the level's image read as its four
+planes, the split folded into the gather) and ``image-out`` (the four
+outputs written as one image, the merge folded into the sink).  Variants that cut barriers or terms compute wrong
 values: they are for timing only, and the table says whether each output
 equals the unedited kernel's.  A variant whose edit does not apply to the
 sources at ``DIR`` is skipped and named.  Every variant is timed at
@@ -119,7 +122,14 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=1024,
                     help="plane edge (the main path's level 0: 1024)")
+    ap.add_argument("--layouts", default="planes",
+                    help="comma-separated layouts of the launch: planes, "
+                         "image-in, image-out (default: planes)")
     args = ap.parse_args(argv)
+    layouts = args.layouts.split(",")
+    unknown = set(layouts) - {"planes", "image-in", "image-out"}
+    if unknown:
+        ap.error(f"unknown layouts {sorted(unknown)}")
     tree = Path(args.tree).resolve()
     loaded = sys.modules.get("repro_torch")
     if loaded is not None and (tree / "src") not in \
@@ -172,11 +182,20 @@ def main(argv=None):
     g = torch.Generator().manual_seed(0)
     shape = (args.batch, args.size, args.size)
     planes = [torch.randn(shape, generator=g).to(dev) for _ in range(4)]
+    # the same samples as one image, for the image-in layout (a tree
+    # older than the layouts times planes only)
+    image = TW.interleave(planes) if "image-in" in layouts else None
+    runs = {"planes": lambda win: TW.tap_window(win, planes),
+            "image-in": lambda win: TW.tap_window(win, image),
+            "image-out": lambda win: TW.tap_window(win, planes,
+                                                   image_out=True)}
     rows = []
-    for label, scheme, fuse in PROGRAMS:
+    for (label, scheme, fuse), layout in itertools.product(PROGRAMS,
+                                                           layouts):
         prog = C.compile_scheme_programs("cdf97", scheme, False, False,
                                          "full", fuse)[0]
         want = None
+        run = runs[layout]
         for (name, lib), (conf, block) in itertools.product(libs.items(),
                                                             CONFIGS):
             saved = {k: getattr(TW, k) for k in ENCODER.get(name, {})}
@@ -185,19 +204,21 @@ def main(argv=None):
             win = TW.encode(prog, block)
             TW.LIBRARY = lib
             TW.KERNEL = TW.Kernel("tap_window", lib)
-            got = TW.tap_window(win, planes)
+            got = run(win)
+            if layout == "image-out":
+                got = (got,)
             torch.cuda.synchronize()
             if want is None:
                 want = got
             exact = all(torch.equal(a, b) for a, b in zip(got, want))
             for _ in range(3):
-                TW.tap_window(win, planes)
+                run(win)
             times = []
             for _ in range(args.reps):
                 s = torch.cuda.Event(enable_timing=True)
                 e = torch.cuda.Event(enable_timing=True)
                 s.record()
-                TW.tap_window(win, planes)
+                run(win)
                 e.record()
                 e.synchronize()
                 times.append(s.elapsed_time(e))
@@ -205,10 +226,11 @@ def main(argv=None):
             grid = list(getattr(TW.KERNEL, "last_grid", ()))
             for k, v in saved.items():
                 setattr(TW, k, v)
-            rows.append(dict(program=label, variant=name, config=conf,
-                             ms=ms, exact=exact, block=list(win.block),
-                             smem=win.smem_bytes, grid=grid))
-            print(f"{label:24s} {name:8s} {conf:8s} {ms:.4f} ms  "
+            rows.append(dict(program=label, layout=layout, variant=name,
+                             config=conf, ms=ms, exact=exact,
+                             block=list(win.block), smem=win.smem_bytes,
+                             grid=grid))
+            print(f"{label:24s} {layout:9s} {name:8s} {conf:8s} {ms:.4f} ms  "
                   f"{'exact' if exact else 'wrong (timing only)'}  block "
                   f"{win.block} smem {win.smem_bytes} grid/per-SM {grid}",
                   flush=True)

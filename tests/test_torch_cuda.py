@@ -52,6 +52,11 @@ def _planes(shape, device, dtype=torch.float32, seed=0):
             for _ in range(4)]
 
 
+def _outputs(out):
+    """A K1 call's outputs as a tuple: its four planes, or its image."""
+    return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+
+
 @pytest.mark.parametrize("scheme", SCHEMES)
 @pytest.mark.parametrize("wavelet", WAVELETS)
 def test_kernel_equals_plain_version_bit_for_bit(cuda_device, wavelet,
@@ -138,6 +143,116 @@ def test_wrapper_rejects_non_contiguous_planes(cuda_device):
     planes = [p.transpose(1, 2) for p in _planes((1, 16, 8), cuda_device)]
     with pytest.raises(ValueError, match="contiguous"):
         TW.tap_window(win, planes)
+
+
+# ---------------------------------------------------------------------------
+# K1 reading a level's image and writing it back (split and merge folded)
+# ---------------------------------------------------------------------------
+
+def _fold_worst(x, levels, fuse, device, compute_dtype="float32"):
+    """Largest |diff| of ``levels`` levels of ``x`` through K1 in the
+    image layout (the engine's path: the first forward launch reads the
+    image, the last inverse launch writes it) against the plane layout
+    (planes copied contiguous, the output interleaved by ``from_planes``)
+    and against the plain version, each level on the LL before it."""
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import polyphase as PP
+    plan = R.get_plan(shape=tuple(x.shape), levels=levels,
+                      scheme="ns-polyconv", fuse=fuse, backend="cuda",
+                      dtype=str(x.dtype).split(".")[-1],
+                      compute_dtype=compute_dtype, device=device)
+
+    def chain(run, planes, windows):
+        for win in windows:
+            planes = run(win, planes)
+        return planes
+
+    worst = 0.0
+    for spec in plan.level_specs:
+        got = PP.apply_steps_cuda(spec.fwd_steps, x,
+                                  windows=spec.fwd_windows)
+        flat = [g.reshape((-1,) + g.shape[-2:]) for g in got]
+        back = PP.apply_steps_cuda(spec.inv_steps, got,
+                                   windows=spec.inv_windows, image_out=True)
+        assert back.shape == x.shape
+        for run in (TW.tap_window, TW.tap_window_ref):
+            split = [p.reshape((-1,) + p.shape[-2:]).contiguous()
+                     for p in S.to_planes(x)]
+            want = chain(run, split, spec.fwd_windows)
+            merged = S.from_planes(chain(run, flat, spec.inv_windows))
+            worst = max([worst, float((back.reshape(merged.shape)
+                                       - merged).abs().max())]
+                        + [float((a - b).abs().max())
+                           for a, b in zip(flat, want)])
+        x = got[0]
+    return worst
+
+
+@pytest.mark.parametrize("case", ["slice2d", "vol3d-half-band", "ragged"])
+def test_image_layouts_equal_plane_layout_and_plain_version(cuda_device,
+                                                            case):
+    """The image gather and the interleave sink at the K1 cells' shapes:
+    the slice cell's request (932x512x512, 5 levels), one temporal
+    half-band of the volume cell's (1864x512x512 through the temporal
+    lifting kernel, 3 levels), and a ragged image at 2 levels: max
+    |diff| 0.0 against the plane layout and the plain version."""
+    from repro_torch.compiler import temporal as TP
+    from repro_torch.kernels import temporal_lift as TL
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    if case == "slice2d":
+        x, levels = torch.randn(932, 512, 512, generator=g,
+                                device=cuda_device), 5
+    elif case == "vol3d-half-band":
+        vol = torch.randn(1864, 512, 512, generator=g, device=cuda_device)
+        x, _ = TL.temporal_lift_forward(vol, TP.compile_temporal("cdf97"))
+        del vol
+        levels = 3
+    else:
+        x, levels = torch.randn(3, 148, 212, generator=g,
+                                device=cuda_device), 2
+    for fuse in ("none", "scheme"):
+        assert _fold_worst(x, levels, fuse, cuda_device) == 0.0, fuse
+
+
+@pytest.mark.parametrize("io,cdt", [(torch.float16, "float32"),
+                                    (torch.bfloat16, "float32"),
+                                    (torch.float32, "bfloat16"),
+                                    (torch.bfloat16, "bfloat16")])
+def test_image_layouts_narrow_types_and_wrap(cuda_device, io, cdt):
+    """16-bit I/O and bfloat16 compute, batch dims and planes narrower
+    than the halo (the wrap): the image layouts equal the plane layout
+    and the plain version bit for bit."""
+    g = torch.Generator().manual_seed(8)
+    for shape, levels in (((2, 6, 40), 1), ((2, 3, 8, 12), 2),
+                          ((2, 6, 10), 1)):
+        x = torch.randn(shape, generator=g).to(cuda_device, io)
+        for fuse in ("none", "scheme"):
+            assert _fold_worst(x, levels, fuse, cuda_device, cdt) == 0.0
+
+
+def test_image_layout_counts_folds_and_no_copies(cuda_device):
+    """One slice-cell-shaped request through dwt2/idwt2 at fuse "none":
+    a fold per level each way, no plane-copy bytes, 4 K1 launches a
+    level; a non-contiguous image is copied once and counted."""
+    from repro_torch.kernels import polyphase as PP
+    x = torch.randn(6, 64, 96, device=cuda_device)
+    kw = dict(scheme="ns-polyconv", fuse="none", backend="cuda",
+              device=cuda_device)
+    n0 = TW.KERNEL.launches
+    f0 = {op: PP.PLANE_FOLDS.value(op=op) for op in ("split", "merge")}
+    b0 = {op: PP.PLANE_COPY_BYTES.value(op=op) for op in ("split", "merge")}
+    back = R.idwt2(R.dwt2(x, levels=3, **kw), **kw)
+    torch.testing.assert_close(back, x, **ROUNDTRIP_TOL)
+    assert TW.KERNEL.launches - n0 == 12
+    for op in ("split", "merge"):
+        assert PP.PLANE_FOLDS.value(op=op) - f0[op] == 3
+        assert PP.PLANE_COPY_BYTES.value(op=op) == b0[op]
+    xt = x.transpose(-1, -2)
+    pyr = R.dwt2(xt, levels=1, **kw)
+    assert PP.PLANE_COPY_BYTES.value(op="split") - b0["split"] == \
+        xt.numel() * 4
+    ref = R.dwt2(xt.contiguous(), levels=1, **kw)
+    assert torch.equal(pyr.ll, ref.ll)
 
 
 # ---------------------------------------------------------------------------
@@ -777,11 +892,11 @@ def test_compression_k1_equals_plain_version(cuda_device, monkeypatch,
     worst = []
     kernel = TW.tap_window
 
-    def versus_plain(win, planes):
-        out = kernel(win, planes)
-        ref = TW.tap_window_ref(win, planes)
+    def versus_plain(win, src, **kw):
+        out = kernel(win, src, **kw)
+        ref = TW.tap_window_ref(win, src, **kw)
         worst.append(max(float((a - b).abs().max())
-                         for a, b in zip(out, ref)))
+                         for a, b in zip(_outputs(out), _outputs(ref))))
         return out
 
     monkeypatch.setattr(TW, "tap_window", versus_plain)

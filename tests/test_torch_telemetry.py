@@ -387,28 +387,39 @@ def test_profiler_mirror_annotates_torch_profiler():
     assert nests("execute.forward", "call.dwt3")
     assert nests("level3.forward", "execute.forward")
     assert nests("temporal.forward", "level3.forward")
-    assert nests("planes.split", "level3.forward")
+    # K1 reads the contiguous half-bands as images: no copy, no span
+    assert "planes.split" not in ranges and "planes.merge" not in ranges
     assert len(ranges["level3.forward"]) == 2
 
 
 def test_plane_copy_bytes_count_what_the_copies_write():
-    """repro_plane_copy_bytes_total: a forward level's split writes its
-    image once; an inverse level's planes are contiguous already, so it
-    splits nothing, and its merge writes the image twice."""
+    """repro_plane_copy_bytes_total: K1 reads a contiguous image and
+    writes the inverse's image itself, so a round trip copies nothing
+    (repro_plane_folds_total counts a split and a merge a level);
+    planes handed over as non-contiguous views are still copied, and
+    counted, before the launch."""
     from repro_torch.kernels import polyphase as PP
     x = torch.from_numpy(_img((2, 32, 32)))
     pyr = R.dwt2(x, levels=2, backend="cuda", device="cpu")
-    image = (2 * 32 * 32 + 2 * 16 * 16) * 4
-    assert PP.PLANE_COPY_BYTES.value(op="split") == image
+    assert PP.PLANE_COPY_BYTES.value(op="split") == 0
     assert PP.PLANE_COPY_BYTES.value(op="merge") == 0
+    assert PP.PLANE_FOLDS.value(op="split") == 2
+    assert PP.PLANE_FOLDS.value(op="merge") == 0
     R.idwt2(pyr, backend="cuda", device="cpu")
-    assert PP.PLANE_COPY_BYTES.value(op="split") == image
-    assert PP.PLANE_COPY_BYTES.value(op="merge") == 2 * image
-    planes = tuple(torch.zeros(2, 8, 8) for _ in range(4))
+    assert PP.PLANE_COPY_BYTES.value(op="split") == 0
+    assert PP.PLANE_COPY_BYTES.value(op="merge") == 0
+    assert PP.PLANE_FOLDS.value(op="split") == 2
+    assert PP.PLANE_FOLDS.value(op="merge") == 2
     spec = TE.get_plan(shape=(2, 16, 16), levels=1, backend="cuda",
                        device="cpu").level_specs[0]
+    planes = tuple(torch.zeros(2, 8, 8) for _ in range(4))
     PP.apply_steps_cuda(spec.fwd_steps, planes, windows=spec.fwd_windows)
-    assert PP.PLANE_COPY_BYTES.value(op="split") == image
+    assert PP.PLANE_COPY_BYTES.value(op="split") == 0
+    views = tuple(torch.zeros(2, 8, 8).mT for _ in range(4))
+    PP.apply_steps_cuda(spec.fwd_steps, views, windows=spec.fwd_windows)
+    assert PP.PLANE_COPY_BYTES.value(op="split") == 4 * 2 * 8 * 8 * 4
+    assert PP.PLANE_COPY_BYTES.value(op="merge") == 0
+    assert PP.PLANE_FOLDS.value(op="split") == 2
 
 
 def test_kernel_launches_are_a_view_of_the_registry_series():

@@ -156,22 +156,52 @@ def walk_table(tab, nb, inputs, sink, rnd):
                 sink(mask, q, acc)
 
 
-def emulate(win, planes):
+def emulate(win, src, image_out=False):
     """NumPy walk of ``win.table`` over every tile, mirroring the kernel:
     mod-indexed input windows, the wave walk (:func:`walk_table`), masked
-    stores of the tile core."""
+    stores of the tile core.  ``src`` is four ``(nb, hp, wp)`` planes or
+    one ``(nb, 2hp, 2wp)`` image, addressed as the kernel's strided gather
+    addresses it (csrc/tap_window.cu: plane ``j`` from ``(j >> 1) * W +
+    (j & 1)`` at row stride ``2W`` and column stride 2, mod-``hp`` /
+    mod-``wp`` only off the interior); ``image_out`` writes the outputs
+    to one image as its strided sink does (row stride ``4wp``, column
+    stride 2)."""
     bf = win.compute_dtype == "bfloat16"
     rnd = _bf16 if bf else (lambda a: a)
     r = int(win.table[5])
-    nb, hp, wp = planes[0].shape
+    image_in = not isinstance(src, (list, tuple))
+    if image_in:
+        nb, h, w = src.shape
+        hp, wp = h // 2, w // 2
+        flat = np.asarray(src).reshape(nb, h * w)
+    else:
+        nb, hp, wp = src[0].shape
     bh, bw = win.block
     wh, ww = bh + 2 * r, bw + 2 * r
     assert (int(win.table[6]), int(win.table[7])) == (wh, ww)
-    outs = [np.full_like(p, np.nan) for p in planes]
+    if image_out:
+        img = np.full((nb, 4 * hp * wp), np.nan, np.float32)
+    else:
+        outs = [np.full((nb, hp, wp), np.nan, np.float32) for _ in range(4)]
     for y0 in range(0, hp, bh):
         for x0 in range(0, wp, bw):
-            rows = (y0 - r + np.arange(wh)) % hp
-            cols = (x0 - r + np.arange(ww)) % wp
+            if image_in:
+                interior = (y0 >= r and y0 + bh + r <= hp and x0 >= r
+                            and x0 + bw + r <= wp)
+                gy = y0 - r + np.arange(wh)
+                gx = x0 - r + np.arange(ww)
+                if not interior:
+                    gy, gx = gy % hp, gx % wp
+                idx = gy[:, None] * (2 * w) + gx[None, :] * 2
+                inputs = []
+                for j in range(4):
+                    at = (j >> 1) * w + (j & 1) + idx
+                    assert at.min() >= 0 and at.max() < h * w
+                    inputs.append(flat[:, at])
+            else:
+                rows = (y0 - r + np.arange(wh)) % hp
+                cols = (x0 - r + np.arange(ww)) % wp
+                inputs = [p[:, rows][:, :, cols] for p in src]
 
             def sink(mask, q, vals, y0=y0, x0=x0):
                 y, x = q // ww, q % ww
@@ -179,10 +209,17 @@ def emulate(win, planes):
                 keep = ((y >= r) & (y < r + bh) & (x >= r) & (x < r + bw)
                         & (gy < hp) & (gx < wp))
                 for k in range(4):
-                    if mask >> k & 1:
+                    if not mask >> k & 1:
+                        continue
+                    if image_out:
+                        at = ((k >> 1) * 2 * wp + (k & 1)
+                              + gy[keep] * 4 * wp + gx[keep] * 2)
+                        img[:, at] = vals[:, keep]
+                    else:
                         outs[k][:, gy[keep], gx[keep]] = vals[:, keep]
-            walk_table(win.table, nb,
-                       [p[:, rows][:, :, cols] for p in planes], sink, rnd)
+            walk_table(win.table, nb, inputs, sink, rnd)
+    if image_out:
+        return img.reshape(nb, 2 * hp, 2 * wp)
     return outs
 
 
@@ -218,6 +255,36 @@ def test_encoded_table_bf16_compute_matches_plain_version(fuse, io):
             got = emulate(win, [p.astype(np.float32) for p in planes])
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g.astype(io), w.numpy())
+
+
+@pytest.mark.parametrize("size", [(22, 26), (44, 52)])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_encoded_table_image_layouts_match_plain_version(scheme, size):
+    """The kernel's image addressing: an image read as its four planes
+    (the split folded into the gather) and the outputs written as one
+    image (the merge folded into the sink), walked tile by tile, equal
+    the plain version's image layouts bit for bit; 11x13 planes wrap in
+    every tile, 22x26 ones have interior tiles too."""
+    image = np.random.default_rng(6).standard_normal(
+        (2,) + size).astype(np.float32)
+    tx = torch.from_numpy(image)
+    planes = [np.ascontiguousarray(image[:, dy::2, dx::2])
+              for dy in (0, 1) for dx in (0, 1)]
+    tp = [torch.from_numpy(p) for p in planes]
+    for wavelet, inverse, fuse in itertools.product(
+            ("cdf97", "dd137"), (False, True), ("none", "scheme")):
+        for prog in TC.compile_scheme_programs(wavelet, scheme, False,
+                                               inverse, "full", fuse):
+            win = TW.encode(prog, (4, 8))
+            want = TW.tap_window_ref(win, tx)
+            for g, w in zip(emulate(win, image), want):
+                np.testing.assert_array_equal(g, w.numpy())
+            want = TW.tap_window_ref(win, tp, image_out=True)
+            np.testing.assert_array_equal(
+                emulate(win, planes, image_out=True), want.numpy())
+            want = TW.tap_window_ref(win, tx, image_out=True)
+            np.testing.assert_array_equal(
+                emulate(win, image, image_out=True), want.numpy())
 
 
 def test_layout_frees_slots_after_last_reader():
