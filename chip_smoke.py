@@ -102,9 +102,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              profiler trace and both Chrome traces valid JSON (written to
              ``build/chip_smoke/``); the live roofline at most
              3,350 GB/s and within 2x of a CUDA-event median over the same
-             ``plan_hbm_bytes`` (spans and events both around calls made
-             back to back; the roofline read after five: the newest, and
-             the ring's median); the same count of
+             ``plan.executor.hbm_bytes`` (spans and events both around
+             calls made back to back; the roofline read after five: the
+             newest, and the ring's median); the same count of
              synchronising calls in "off", "counters" and "spans" (sync
              debug mode); recovery — ``pyramid.launch=raise:always``
              degrades to cuda/levels, bit for bit, K1 +3, K2 +0, the
@@ -1501,7 +1501,6 @@ def phase_telemetry(torch, R, TW, PW, device, cpu, gen, x, timer):
     from repro_torch.faults import inject as FJ
     from repro_torch.faults import plan as FP
     from repro_torch.faults.policy import RETRIES
-    from repro_torch.kernels import polyphase as PP
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     counters = kernels(TW, PW)
@@ -1638,7 +1637,7 @@ def phase_telemetry(torch, R, TW, PW, device, cpu, gen, x, timer):
             ring = [r.dur_s for r in T.TRACER.records()
                     if r.name == f"execute.{op}"]
             check(len(ring) == reps, f"{len(ring)} execute.{op} spans")
-            bytes_ = PP.plan_hbm_bytes(plan, op)
+            bytes_ = plan.executor.hbm_bytes(op)
             ring_gbps = bytes_ / statistics.median(ring) / 1e9
             T.set_mode("counters")
             ev_ms = timer.back_to_back_ms(run, reps=20)
@@ -1814,7 +1813,6 @@ def phase_tiling(torch, R, TW, PW, device, cpu, gen, x, timer):
     from repro_torch.faults import inject as FJ
     from repro_torch.faults import plan as FP
     from repro_torch.faults.policy import RETRIES
-    from repro_torch.kernels import polyphase as PP
     from repro_torch.tiling import open_checkpoint
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -2106,8 +2104,8 @@ def phase_tiling(torch, R, TW, PW, device, cpu, gen, x, timer):
             for k in counters.values():
                 k.launches = 0      # timing launches are not the path's
             mean = {nm: statistics.mean(v) for nm, v in spans.items()}
-            tb = PP.plan_hbm_bytes(plan, op)
-            mb = PP.plan_hbm_bytes(mplan, op)
+            tb = plan.executor.hbm_bytes(op)
+            mb = mplan.executor.hbm_bytes(op)
             print(f"{fuse},{op},{t_ms:.4f},{m_ms:.4f},{t_ms / m_ms:.4f},"
                   f"{mean.get('tile.halo_gather', float('nan')):.4f},"
                   f"{mean.get('tile.window_transform', float('nan')):.4f},"
@@ -3865,8 +3863,8 @@ def _time_transforms(torch, R, PP, device, plans, x, timer):
         # modelled bytes of the kernel path (what the live roofline
         # divides by): one fused-pyramid launch, or every launch's windows
         # and outputs plus the split/merge copy, summed over the levels
-        model = {"fwd": PP.plan_hbm_bytes(plan, "forward"),
-                 "inv": PP.plan_hbm_bytes(plan, "inverse")}
+        model = {"fwd": plan.executor.hbm_bytes("forward"),
+                 "inv": plan.executor.hbm_bytes("inverse")}
         for backend in ("cuda", "torch"):
             pyr = R.dwt2(x, backend=backend, levels=MAIN["levels"], **common)
             f_ms = timer.ms(lambda: R.dwt2(x, backend=backend,

@@ -42,6 +42,7 @@ from repro_torch.compiler.pyramid import (PyramidSchedule,
                                           compile_pyramid_programs,
                                           forward_schedule, inverse_schedule,
                                           level_reaches)
+from repro_torch.kernels.polyphase import scheme_steps
 
 __all__ = [
     "Node", "TapProgram", "Term", "OPT_LEVELS", "compile_steps",
@@ -73,7 +74,6 @@ def compile_scheme_programs(wavelet: str, scheme: str, optimize: bool,
     and runs inside a ``compile.scheme`` span.
     """
     from repro_torch import telemetry as T
-    from repro_torch.engine.plan import scheme_steps  # deferred: cycle
     T.counter("repro_tap_compiles_total",
               "tap-program compilations (lru_cache misses of "
               "compile_scheme_programs)",

@@ -250,21 +250,6 @@ int tap_window_launch_layout(const int* table, int table_ints,
 #undef TAP_WINDOW_LAUNCH
 }
 
-// The plane layout: four planes in, four out (tap_window_launch_layout at
-// layout 0).
-int tap_window_launch(const int* table, int table_ints,
-                      const void* in0, const void* in1, const void* in2,
-                      const void* in3, void* out0, void* out1, void* out2,
-                      void* out3, int batch, int hp, int wp, int bh, int bw,
-                      int r, int smem, int elems, int io_dtype,
-                      int bf16_compute, int device, void* stream,
-                      int* info) {
-  return tap_window_launch_layout(table, table_ints, in0, in1, in2, in3,
-                                  out0, out1, out2, out3, batch, hp, wp, bh,
-                                  bw, r, smem, elems, io_dtype, bf16_compute,
-                                  0, device, stream, info);
-}
-
 const char* tap_window_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

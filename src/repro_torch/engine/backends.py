@@ -1,4 +1,4 @@
-"""Backend registry: the engine's single executor-dispatch point.
+"""Backend registry: what each backend can run, and its hooks.
 
 Each :class:`Backend` declares
 
@@ -6,11 +6,15 @@ Each :class:`Backend` declares
 * a **plan-compatibility check** (:meth:`Backend.validate`) that runs at
   plan build, so an unsupported ``(backend, PlanKey)`` combination fails
   with an error naming the offending PlanKey field;
-* the **executor factories** (:meth:`Backend.make_forward` /
-  :meth:`Backend.make_inverse`) the plan layer installs as
-  ``plan._forward`` / ``plan._inverse``;
-* a **launch model** (:meth:`Backend.launches`) — kernel launches per
-  execution, what ``DwtPlan.launches`` reports.
+* its **hooks** — one 2-D level (``level_forward`` / ``level_inverse``),
+  one temporal level of a 3-D plan (``temporal_forward`` /
+  ``temporal_inverse``) and one level of a reversible wavelet
+  (``reversible_forward`` / ``reversible_inverse``) — and the two facts
+  the executors' models read: ``window_kernel`` and
+  ``launches_programs``.
+
+How a plan walks its levels, what it launches, moves and builds is its
+executor's (:mod:`repro_torch.engine.executor`, one per plan kind).
 
 Registered backends:
 
@@ -36,8 +40,8 @@ Registered backends:
 PyTorch runs eagerly, so every backend chains levels in Python;
 ``fuse="levels"`` differs from ``"scheme"`` only in name here.  Packet and
 3-D plans run on every backend through its level hooks
-(:func:`~repro_torch.engine.executor.make_packet_forward`,
-:func:`~repro_torch.engine.executor.make_dwt3_forward`), 3-D plans also
+(:class:`~repro_torch.engine.executor.Packets`,
+:class:`~repro_torch.engine.executor.Volume`), 3-D plans also
 through its temporal hooks (``temporal_forward`` / ``temporal_inverse``:
 the plain pass on ``"torch"`` and ``"conv"``, the kernel on ``"cuda"``).
 
@@ -57,7 +61,6 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-from repro_torch import telemetry as T
 from repro_torch.compiler import temporal as TP
 from repro_torch.core import reversible as RV
 from repro_torch.core.wavelets import REVERSIBLE, is_reversible
@@ -108,6 +111,10 @@ class Backend:
     #: True when launches run the window kernel: plans then pick its block
     #: through the SMEM guard and encode every program for it
     window_kernel: bool = False
+    #: True when each compiled program is one launch (each barrier step
+    #: under fuse="none", each level's chain otherwise); False when the
+    #: backend launches no kernels of its own
+    launches_programs: bool = False
     #: True when fuse="pyramid" is a real single-launch kernel (not the
     #: per-level chain)
     pyramid_kernel: bool = False
@@ -239,51 +246,7 @@ class Backend:
         int32 images (..., H, W)."""
         raise NotImplementedError
 
-    def make_forward(self, plan):
-        """Build the forward executor: x -> (ll, details coarsest-first)."""
-        key, specs = plan.key, plan.level_specs
-
-        def run(x):
-            details = []
-            ll = x
-            for spec in specs:
-                # one span per level, timed on the card for CUDA plans
-                with T.device_span("level.forward", key.device,
-                                   level=spec.index, backend=self.name):
-                    ll, hl, lh, hh = self.level_forward(ll, spec, key)
-                details.append((hl, lh, hh))
-            return ll, tuple(details[::-1])
-
-        return run
-
-    def make_inverse(self, plan):
-        """Build the inverse executor: (ll, details coarsest-first) -> x."""
-        key, specs = plan.key, plan.level_specs
-
-        def run(ll, details):
-            for spec, (hl, lh, hh) in zip(reversed(specs), details):
-                with T.device_span("level.inverse", key.device,
-                                   level=spec.index, backend=self.name):
-                    ll = self.level_inverse((ll, hl, lh, hh), spec, key)
-            return ll
-
-        return run
-
     # -- observability -----------------------------------------------------
-
-    def launches(self, plan) -> int:
-        """Kernel launches per execution under this plan (0 = the backend
-        launches no kernels of its own)."""
-        return 0
-
-    @staticmethod
-    def level_launches(plan) -> int:
-        """Launches of a backend with one launch per program: each level
-        runs its barrier steps (``fuse="none"``) or one fused program,
-        once per node at that depth (``plan.level_runs``)."""
-        return sum(runs * (len(spec.fwd_steps) if plan.key.fuse == "none"
-                           else 1)
-                   for spec, runs in zip(plan.level_specs, plan.level_runs))
 
     def capabilities(self) -> dict:
         return {"backend": self.name, "fuse_modes": self.fuse_modes,
@@ -389,6 +352,7 @@ class CudaBackend(Backend):
                    "(plain versions on CPU)")
     io_dtypes = ("float32", "float16", "bfloat16")
     window_kernel = True
+    launches_programs = True
     pyramid_kernel = True
     # the window kernel launches per level, so a 3-D plan's temporal pass
     # runs unfused between its launches (recorded on plan.fallback)
@@ -422,27 +386,6 @@ class CudaBackend(Backend):
     def reversible_inverse(self, planes, wavelet):
         return RL.rev_lift_inverse(planes, wavelet)
 
-    def make_forward(self, plan):
-        if plan.pyramid is not None:
-            return X.make_pyramid_forward(plan)
-        return super().make_forward(plan)  # or the SMEM fallback: "levels"
-
-    def make_inverse(self, plan):
-        if plan.pyramid is not None:
-            return X.make_pyramid_inverse(plan)
-        return super().make_inverse(plan)
-
-    def launches(self, plan) -> int:
-        """Window and fused-pyramid kernel launches; a 3-D plan's temporal
-        pass adds one temporal lifting launch per level and direction,
-        counted under its own kernel.  A reversible plan launches the
-        reversible lifting kernel once a level."""
-        if is_reversible(plan.key.wavelet):
-            return plan.key.levels
-        if plan.key.fuse == "pyramid" and plan.pyramid is not None:
-            return 1
-        return self.level_launches(plan)
-
 
 class ConvBackend(Backend):
     """``F.conv2d`` execution of the compiled tap programs
@@ -460,6 +403,8 @@ class ConvBackend(Backend):
     description = ("compiled tap programs as grouped F.conv2d calls "
                    "(cuDNN on the card, TF32 off)")
     fuse_modes = ("none", "scheme", "levels")
+    # one F.conv2d call per program
+    launches_programs = True
 
     def program_opt(self, key) -> str:
         # conv lowering composes a *program*; "off" (the raw matrix walk)
@@ -472,11 +417,6 @@ class ConvBackend(Backend):
 
     def level_inverse(self, planes, spec, key):
         return X.conv_level_inverse(planes, spec, key)
-
-    def launches(self, plan) -> int:
-        """``F.conv2d`` calls per execution — the barrier count of the
-        scheme under ``fuse="none"`` (ns-* schemes halve it)."""
-        return self.level_launches(plan)
 
 
 class AutoBackend(Backend):
@@ -497,13 +437,6 @@ class AutoBackend(Backend):
         if is_reversible(key.wavelet):
             # the profile store and the cost model measure float plans
             self.validate_reversible(key)
-
-    def make_forward(self, plan):
-        raise BackendError(
-            "backend 'auto' resolves to a concrete backend at plan "
-            "build; plans never execute on it directly")
-
-    make_inverse = make_forward
 
 
 register_backend(TorchBackend())

@@ -7,12 +7,14 @@ A :class:`DwtPlan` resolves, exactly once per
 
 key, the per-level :class:`~repro_torch.kernels.polyphase.StepSpec`
 sequences (forward and inverse), the compiled tap programs, the window
-kernel's block and encoded program tables, and the executor callables.
+kernel's block and encoded program tables, and the plan's executor
+(:mod:`repro_torch.engine.executor`, one class per plan kind, chosen
+once here): what the plan runs, launches, moves and builds.
 Plans are shared through the LRU cache in :mod:`repro_torch.engine.cache`,
 so repeated same-configuration calls have zero rebuild cost.
 
-Execution semantics (see :mod:`repro_torch.engine.backends` /
-:mod:`repro_torch.engine.executor`):
+Execution semantics (see :mod:`repro_torch.engine.executor` /
+:mod:`repro_torch.engine.backends`):
 
 * every registered backend accepts batched ``(..., H, W)`` input;
 * ``fuse="none"``   — paper-faithful: one kernel launch per barrier step;
@@ -66,8 +68,6 @@ the periodic boundary (:data:`BOUNDARIES`).
 from __future__ import annotations
 
 import dataclasses
-import functools
-import math
 import os
 from typing import Optional, Tuple
 
@@ -77,8 +77,6 @@ from repro_torch.engine.pyramid import Pyramid, Pyramid3, WaveletPacket2D
 
 from repro_torch import compiler as C
 from repro_torch import telemetry as T
-from repro_torch.core import optimize as O
-from repro_torch.core import schemes as S
 from repro_torch.core.wavelets import REVERSIBLE, is_reversible
 from repro_torch.engine import backends as B
 from repro_torch.engine import executor as X
@@ -86,7 +84,6 @@ from repro_torch.faults import degrade as R
 from repro_torch.faults import inject as FI
 from repro_torch.kernels import polyphase as PP
 from repro_torch.kernels import pyramid_window as PW
-from repro_torch.kernels import rev_lift as RL
 from repro_torch.kernels import tap_window as TW
 
 FUSE_MODES = ("none", "scheme", "levels", "pyramid")
@@ -103,11 +100,8 @@ PYRAMID_SMEM_LIMIT_ENV = "REPRO_TORCH_PYRAMID_SMEM_LIMIT"
 # reference's metric names; surfaced through repro_torch.engine.stats()
 # and the Prometheus exposition).  The counters behind the dict views
 # below are gated=False: the views counted in every telemetry mode
-# before they were views, and still do
-PYRAMID_LAUNCHES = T.counter(
-    "repro_pyramid_kernel_launches_total",
-    "fused-pyramid executions (one K2 or K3 launch each on the card)",
-    gated=False)
+# before they were views, and still do (the executions counter is
+# executor.PYRAMID_LAUNCHES)
 VMEM_FALLBACKS = T.counter(
     "repro_vmem_fallbacks_total",
     "fuse='pyramid' plans demoted to fuse='levels' by the shared-memory "
@@ -232,17 +226,6 @@ def validate_image_geometry(h: int, w: int, levels: int) -> None:
                 f"for this image is {max_feasible_levels(h, w)}")
 
 
-@functools.lru_cache(maxsize=512)
-def scheme_steps(wavelet: str, scheme: str, optimize: bool,
-                 inverse: bool) -> Tuple[PP.StepSpec, ...]:
-    """Scheme algebra -> StepSpec sequence, memoized across all plans."""
-    if inverse:
-        return tuple(PP.steps_of(S.build_inverse_scheme(wavelet, scheme)))
-    sch = (O.build_optimized(wavelet, scheme) if optimize
-           else S.build_scheme(wavelet, scheme))
-    return tuple(PP.steps_of(sch))
-
-
 @dataclasses.dataclass
 class LevelSpec:
     """Static execution parameters of one pyramid level."""
@@ -296,8 +279,8 @@ class DwtPlan:
 
     key: PlanKey
     level_specs: Tuple[LevelSpec, ...]
-    _forward: Optional[object] = None   # set by the backend
-    _inverse: Optional[object] = None
+    # the executor of the plan's kind (X.kind), set by build_plan
+    executor: Optional["X.Executor"] = None
     # PyramidSpec for fuse="pyramid" cuda plans; None after the
     # shared-memory fallback (the plan then executes as fuse="levels")
     pyramid: Optional[PyramidSpec] = None
@@ -321,15 +304,14 @@ class DwtPlan:
 
     @property
     def level_runs(self) -> Tuple[int, ...]:
-        """How many times each level's 2-D transform runs per execution
-        (:func:`level_runs`)."""
-        return level_runs(self.key)
+        """How many times each level's 2-D transform runs per
+        execution."""
+        return self.executor.level_runs(self.key)
 
     @property
     def level_images(self) -> Tuple[int, ...]:
-        """Images in one run of each level's 2-D transform
-        (:func:`level_images`)."""
-        return level_images(self.key)
+        """Images in one run of each level's 2-D transform."""
+        return self.executor.level_images(self.key)
 
     @property
     def tile_count(self) -> Optional[int]:
@@ -339,13 +321,17 @@ class DwtPlan:
     @property
     def launches(self) -> int:
         """Kernel launches per execution (forward or inverse) under this
-        plan's fuse mode, as modelled by the backend; a tiled plan's are
+        plan's fuse mode, as its executor models them; a tiled plan's are
         those of its forward window plan (fetched through the plan
         cache): the whole grid is one batched window execution."""
-        if self.grid is not None:
-            from repro_torch.tiling import api as TA
-            return TA.window_plan(self, "forward").launches
-        return self.backend.launches(self)
+        return self.executor.launches()
+
+    def run(self, op: str, *args):
+        """One raw ``op`` execution by the plan's executor, with no
+        dispatch (what :meth:`execute` dispatches to, and what a fallback
+        hop or a tiled plan's window transform runs)."""
+        ex = self.executor
+        return ex.forward(*args) if op == "forward" else ex.inverse(*args)
 
     def _check_device(self, t: torch.Tensor, what: str) -> None:
         if str(t.device) != self.key.device:
@@ -360,25 +346,8 @@ class DwtPlan:
         before the first execution, so no build or upload lands in a
         measurement or on a worker's stream."""
         dev = torch.device(self.key.device)
-        if dev.type != "cuda" or not self.backend.window_kernel:
-            return self
-        if is_reversible(self.key.wavelet):
-            RL.LIBRARY.library()
-            return self
-        if self.grid is not None:
-            from repro_torch.tiling import api as TA
-            for op in ("forward", "inverse"):
-                TA.window_plan(self, op).prepare()
-            return self
-        if self.pyramid is not None:
-            PW.LIBRARY.library()
-            for pw in (self.pyramid.fwd_kernel, self.pyramid.inv_kernel):
-                pw.device_table(dev)
-            return self
-        TW.LIBRARY.library()
-        for spec in self.level_specs:
-            for win in spec.fwd_windows + spec.inv_windows:
-                win.device_table(dev)
+        if dev.type == "cuda" and self.backend.window_kernel:
+            self.executor.prepare(dev)
         return self
 
     def compiled_stats(self) -> Optional[dict]:
@@ -446,28 +415,6 @@ class DwtPlan:
             "inverse", (pyr.ll, tuple(tuple(d) for d in pyr.details)))
 
 
-def level_runs(key: PlanKey) -> Tuple[int, ...]:
-    """How many times each level's 2-D transform runs per execution of a
-    plan of ``key``: once per internal packet node at that depth, twice
-    (both temporal half-bands) for a 3-D plan, else once."""
-    if key.packet is not None:
-        from repro_torch.core import packets as PK
-        depths = [len(p) for p in PK.PacketTree(key.packet).internal_nodes()]
-        return tuple(depths.count(d) for d in range(key.levels))
-    return (2 if key.ndim == 3 else 1,) * key.levels
-
-
-def level_images(key: PlanKey) -> Tuple[int, ...]:
-    """Images in one run of each level's 2-D transform: the batch of a
-    2-D or packet plan, the frames of one temporal half-band of a 3-D
-    plan."""
-    if key.ndim == 3:
-        lead = math.prod(key.shape[:-3])
-        return tuple(lead * (key.shape[-3] >> (l + 1))
-                     for l in range(key.levels))
-    return (math.prod(key.shape[:-2]),) * key.levels
-
-
 def pick_block_target(key: PlanKey) -> Tuple[int, int]:
     """Block target of a plan built without an explicit one: the block
     table's entry for ``(scheme, HxW, fuse, backend)`` on the key's
@@ -479,6 +426,17 @@ def pick_block_target(key: PlanKey) -> Tuple[int, int]:
     return tuned if tuned is not None else TW.BLOCK_TARGET
 
 
+def block_target_of(key: PlanKey, backend: "B.Backend",
+                    block_target: Optional[Tuple[int, int]] = None
+                    ) -> Tuple[int, int]:
+    """The block target a plan of ``key`` starts from: ``block_target``,
+    else (on the window kernel) :func:`pick_block_target`, else
+    :data:`~repro_torch.kernels.tap_window.BLOCK_TARGET`."""
+    if block_target is None and backend.window_kernel:
+        block_target = pick_block_target(key)
+    return block_target or TW.BLOCK_TARGET
+
+
 def _resolve_level(index: int, h: int, w: int, key: PlanKey,
                    fwd: Tuple[PP.StepSpec, ...],
                    inv: Tuple[PP.StepSpec, ...],
@@ -486,7 +444,7 @@ def _resolve_level(index: int, h: int, w: int, key: PlanKey,
                    block_target: Tuple[int, int] = TW.BLOCK_TARGET
                    ) -> LevelSpec:
     hp, wp = h // 2, w // 2
-    fwd_programs = inv_programs = fwd_windows = inv_windows = block = None
+    fwd_programs = inv_programs = block = None
     # the backend decides the tap-program compilation level (None = raw
     # matrix walk) and the fuse granularity of its launches: one program
     # per step (fuse="none") or one whole-chain program per level
@@ -502,14 +460,23 @@ def _resolve_level(index: int, h: int, w: int, key: PlanKey,
         # until every launch of both directions fits in shared memory
         block = TW.fit_block(fwd_programs + inv_programs, hp, wp,
                              block_target)
-        fwd_windows = tuple(TW.encode(p, block, key.compute_dtype)
-                            for p in fwd_programs)
-        inv_windows = tuple(TW.encode(p, block, key.compute_dtype)
-                            for p in inv_programs)
     return LevelSpec(index=index, image_shape=(h, w), plane_shape=(hp, wp),
                      fwd_steps=fwd, inv_steps=inv, block=block,
-                     fwd_programs=fwd_programs, inv_programs=inv_programs,
-                     fwd_windows=fwd_windows, inv_windows=inv_windows)
+                     fwd_programs=fwd_programs, inv_programs=inv_programs)
+
+
+def resolve_levels(key: PlanKey, backend: "B.Backend",
+                   block_target: Tuple[int, int] = TW.BLOCK_TARGET
+                   ) -> Tuple[LevelSpec, ...]:
+    """One :class:`LevelSpec` per level of a float plan of ``key`` on
+    ``backend``, its window-kernel tables not encoded yet (the cost
+    model's features need the blocks, not the tables)."""
+    h, w = key.shape[-2], key.shape[-1]
+    fwd = PP.scheme_steps(key.wavelet, key.scheme, key.optimize, False)
+    inv = PP.scheme_steps(key.wavelet, key.scheme, False, True)
+    return tuple(_resolve_level(lvl, h >> lvl, w >> lvl, key, fwd, inv,
+                                backend, block_target)
+                 for lvl in range(key.levels))
 
 
 def pyramid_programs(key: PlanKey):
@@ -521,8 +488,9 @@ def pyramid_programs(key: PlanKey):
     under ``"off"`` the lowered raw walk, bit-identical to walking the
     matrices, whose halo never exceeds those summed step halos."""
     L = key.levels
-    fwd_steps = scheme_steps(key.wavelet, key.scheme, key.optimize, False)
-    inv_steps = scheme_steps(key.wavelet, key.scheme, False, True)
+    fwd_steps = PP.scheme_steps(key.wavelet, key.scheme, key.optimize,
+                                False)
+    inv_steps = PP.scheme_steps(key.wavelet, key.scheme, False, True)
     fwd_programs = C.compile_pyramid_programs(
         key.wavelet, key.scheme, key.optimize, False, key.tap_opt, L)
     inv_programs = C.compile_pyramid_programs(
@@ -655,8 +623,7 @@ def _build_reversible(key: PlanKey, backend: "B.Backend") -> DwtPlan:
                             fwd_steps=(), inv_steps=())
                   for l in range(key.levels))
     plan = DwtPlan(key=key, level_specs=specs)
-    plan._forward = X.make_reversible_forward(plan, backend)
-    plan._inverse = X.make_reversible_inverse(plan, backend)
+    plan.executor = X.kind(key)(plan, backend)
     return plan
 
 
@@ -742,37 +709,26 @@ def _build_plan(key: PlanKey,
                                         is not None else choice.block))
         plan.auto = choice
         return plan
-    if block_target is None and backend.window_kernel:
-        block_target = pick_block_target(key)
-    block_target = block_target or TW.BLOCK_TARGET
-
-    fwd = scheme_steps(key.wavelet, key.scheme, key.optimize, False)
-    inv = scheme_steps(key.wavelet, key.scheme, False, True)
-    specs = tuple(_resolve_level(lvl, h >> lvl, w >> lvl, key, fwd, inv,
-                                 backend, block_target)
-                  for lvl in range(key.levels))
+    block_target = block_target_of(key, backend, block_target)
+    specs = resolve_levels(key, backend, block_target)
+    if backend.window_kernel:
+        for spec in specs:
+            spec.fwd_windows, spec.inv_windows = (
+                tuple(TW.encode(p, spec.block, key.compute_dtype)
+                      for p in programs)
+                for programs in (spec.fwd_programs, spec.inv_programs))
     plan = DwtPlan(key=key, level_specs=specs, fallback=demoted)
-    if key.packet is not None:
-        plan._forward = X.make_packet_forward(plan, backend)
-        plan._inverse = X.make_packet_inverse(plan, backend)
-        return plan
-    if key.ndim == 3:
-        if key.fuse == "levels" and not backend.temporal_fuse \
-                and plan.fallback is None:
-            plan.fallback = (
-                f"backend {key.backend!r} has no fused t+2D trace; the "
-                f"temporal pass runs unfused between its 2-D levels")
-        plan._forward = X.make_dwt3_forward(plan, backend)
-        plan._inverse = X.make_dwt3_inverse(plan, backend)
-        return plan
+    if key.ndim == 3 and key.fuse == "levels" \
+            and not backend.temporal_fuse and plan.fallback is None:
+        plan.fallback = (
+            f"backend {key.backend!r} has no fused t+2D trace; the "
+            f"temporal pass runs unfused between its 2-D levels")
     if key.fuse == "pyramid" and backend.pyramid_kernel \
             and key.tiles is None:
         plan.pyramid, plan.fallback = _resolve_pyramid(key, h, w,
                                                        block_target)
-
     if key.tiles is not None:
         # deferred: tiling sits above the engine and imports it back
-        from repro_torch.tiling import api as TA
         from repro_torch.tiling import grid as TG
         # under tap_opt="off" the window kernel runs the lowered raw walk,
         # whose reach may be tighter than the summed step halos the
@@ -781,13 +737,5 @@ def _build_plan(key: PlanKey,
         plan.grid = TG.build_grid(
             (h, w), key.tiles, key.levels, specs,
             raw_walk=backend.window_kernel and key.tap_opt == "off")
-        # the executors build their index tensors and fetch their window
-        # plans at first call: a plan fetched only for its grid geometry
-        # (stream_dwt2, the dist transport) builds neither
-        plan._forward = TA.make_tiled_forward(plan)
-        plan._inverse = TA.make_tiled_inverse(plan)
-        return plan
-
-    plan._forward = backend.make_forward(plan)
-    plan._inverse = backend.make_inverse(plan)
+    plan.executor = X.kind(key, plan.pyramid is not None)(plan, backend)
     return plan

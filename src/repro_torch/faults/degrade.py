@@ -216,9 +216,7 @@ def _run_key(cand, op: str, args):
     bypassing plan.execute so a fallback never recursively dispatches
     into its own recovery."""
     from repro_torch.engine import cache as EC
-    plan = EC.global_cache().get(cand)
-    fn = plan._forward if op == "forward" else plan._inverse
-    return fn(*args)
+    return EC.global_cache().get(cand).run(op, *args)
 
 
 def _strict(key) -> bool:
@@ -245,12 +243,11 @@ def dispatch(plan, op: str, args) -> object:
     module docstring) as it is.
     """
     site = f"execute.{op}"
-    fn = plan._forward if op == "forward" else plan._inverse
 
     def attempt():
         inject.maybe_inject(site, backend=plan.key.backend,
                             fuse=plan.key.fuse)
-        out = fn(*args)
+        out = plan.run(op, *args)
         if inject.active() is not None:
             out = inject.corrupt_output(site, out)
             # silent-corruption detection is only armed while the fault

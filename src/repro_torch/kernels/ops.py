@@ -62,7 +62,6 @@ def apply_scheme_cuda(x, *, wavelet: str = "cdf97",
     matrices); ``compute_dtype`` the in-kernel arithmetic dtype.  The
     inverse ignores ``optimize``, as the engine does.
     """
-    from repro_torch.engine.plan import scheme_steps  # deferred: cycle
     kfuse = _kernel_fuse(fuse)
     opt = bool(optimize) and not inverse
     if inverse:
@@ -72,7 +71,8 @@ def apply_scheme_cuda(x, *, wavelet: str = "cdf97",
         hp, wp = x.shape[-2] // 2, x.shape[-1] // 2
     windows = _windows(wavelet, scheme, opt, bool(inverse), kfuse, tap_opt,
                        compute_dtype, int(hp), int(wp))
-    return PP.apply_steps_cuda(scheme_steps(wavelet, scheme, opt, inverse),
+    return PP.apply_steps_cuda(PP.scheme_steps(wavelet, scheme, opt,
+                                               inverse),
                                x, windows=windows, image_out=bool(inverse))
 
 

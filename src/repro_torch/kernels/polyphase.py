@@ -6,13 +6,13 @@ model drives the hand-written CUDA window kernel
 (:mod:`repro_torch.kernels.tap_window`):
 
 * :class:`StepSpec` / :func:`steps_of` — a scheme as barrier-delimited
-  ``(pre, main, post)`` matrix triples;
+  ``(pre, main, post)`` matrix triples; :func:`scheme_steps` — those of
+  a named scheme, memoized;
 * :func:`_pick_block` — block edge selection per axis;
 * :func:`scheme_hbm_bytes` — the device-memory traffic model of one
   transform level on this kernel; :func:`pyramid_hbm_bytes` — that of
-  one fused-pyramid launch; :func:`plan_hbm_bytes` — that of one
-  execution of a plan (what the live roofline and the chip script
-  divide by);
+  one fused-pyramid launch (a plan's executor sums them over one
+  execution, :mod:`repro_torch.engine.executor`);
 * :func:`pyramid_out_levels` — the fused-pyramid kernels' subband order;
 * :func:`apply_steps_cuda` — one launch per step (``fuse="none"``, the
   paper's barrier count) or one per level (``fuse="scheme"``), reading a
@@ -21,13 +21,13 @@ model drives the hand-written CUDA window kernel
 from __future__ import annotations
 
 import dataclasses
-import math
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 from repro_torch import telemetry as T
 from repro_torch.core import optimize as O
 from repro_torch.core import poly as P
-from repro_torch.core.wavelets import is_reversible
+from repro_torch.core import schemes as S
 
 #: bytes the plane copies around the window kernel write, per site:
 #: ``split`` where what a level hands K1 (its image, or its planes) is
@@ -68,6 +68,17 @@ def steps_of(scheme_obj) -> List[StepSpec]:
         return [StepSpec(tuple(st.pre), st.main, tuple(st.post))
                 for st in scheme_obj.steps]
     return [StepSpec((), m, ()) for m, _ in scheme_obj.steps]
+
+
+@functools.lru_cache(maxsize=512)
+def scheme_steps(wavelet: str, scheme: str, optimize: bool,
+                 inverse: bool) -> Tuple[StepSpec, ...]:
+    """Scheme algebra -> StepSpec sequence, memoized across all plans."""
+    if inverse:
+        return tuple(steps_of(S.build_inverse_scheme(wavelet, scheme)))
+    sch = (O.build_optimized(wavelet, scheme) if optimize
+           else S.build_scheme(wavelet, scheme))
+    return tuple(steps_of(sch))
 
 
 def _pick_block(n: int, target: int) -> Tuple[int, int]:
@@ -130,19 +141,16 @@ def pyramid_hbm_bytes(shape: Tuple[int, int], itemsize: int,
 
 
 def scheme_hbm_bytes(programs: Sequence, shape: Tuple[int, int],
-                     itemsize: int, block: Tuple[int, int],
-                     split_merge: bool = False) -> int:
+                     itemsize: int, block: Tuple[int, int]) -> int:
     """Modelled device-memory bytes of one transform level on a (H, W)
     image through the window kernel, one entry of ``programs`` per launch.
 
     Per launch: every block reads its four ``(bh+2r) x (bw+2r)`` windows
     (overlap counted, ragged edge included: the kernel gathers them with
     mod indexing from the unpadded planes) and writes four ``bh x bw``
-    blocks, masked to the plane.  ``split_merge`` adds a polyphase
-    deinterleave (forward) / reinterleave (inverse) run outside the
-    kernel, one extra read + write of the full image per level, as the
-    reference's Pallas path runs them; the port's K1 reads the image and
-    writes it back itself, so by default none is counted.
+    blocks, masked to the plane.  The first launch reads the level's
+    image and the last writes it back, so no polyphase split or merge
+    pass runs outside the kernel.
     """
     h, w = shape
     hp, wp = h // 2, w // 2
@@ -154,92 +162,7 @@ def scheme_hbm_bytes(programs: Sequence, shape: Tuple[int, int],
         read = 4 * (hp2 // bh) * (wp2 // bw) * (bh + 2 * r) * (bw + 2 * r)
         write = 4 * hp * wp
         total += (read + write) * itemsize
-    if split_merge:
-        total += 2 * h * w * itemsize
     return total
-
-
-def plan_hbm_bytes(plan, op: str = "forward") -> int:
-    """Modelled device-memory bytes of one ``op`` execution
-    (``"forward"`` or ``"inverse"``) of a plan, batch included.
-
-    * ``"cuda"`` with a fused-pyramid spec: :func:`pyramid_hbm_bytes`
-      (modelled) of the direction's kernel, per image;
-    * ``"cuda"`` per level: :func:`scheme_hbm_bytes` of each level's
-      launches, once per run of the level (``plan.level_runs``: a packet
-      node, a temporal half-band); a 3-D level adds its temporal pass,
-      which reads the level's volume once and writes its two half-bands
-      once;
-    * ``"torch"`` and ``"conv"``: the unique bytes, input read once and
-      every output written once (``2 x numel x itemsize``) — the port
-      has no traffic model of its own for the roll and ``F.conv2d``
-      paths;
-    * a tiled plan (``plan.grid`` set): :func:`tiled_hbm_bytes`.
-    """
-    import torch  # the I/O dtype's size; the module stays framework-free
-    key = plan.key
-    itemsize = getattr(torch, key.dtype).itemsize
-    numel = math.prod(key.shape)
-    if plan.grid is not None:
-        return tiled_hbm_bytes(plan, op, itemsize)
-    if key.backend != "cuda":
-        return 2 * numel * itemsize
-    inverse = op == "inverse"
-    h, w = key.shape[-2:]
-    if is_reversible(key.wavelet):
-        # each level reads its image (or its four subbands) once and
-        # writes its four subbands (or its image) once
-        return sum(2 * images * hl * wl * itemsize
-                   for (hl, wl), images in zip(
-                       (s.image_shape for s in plan.level_specs),
-                       plan.level_images))
-    if plan.pyramid is not None:
-        pw = plan.pyramid.inv_kernel if inverse else plan.pyramid.fwd_kernel
-        per_image = pyramid_hbm_bytes((h, w), itemsize, pw.level_blocks,
-                                      [p.halo for p in pw.programs])
-        return per_image.modelled * (numel // (h * w))
-    total = 0
-    for spec, runs, images in zip(plan.level_specs, plan.level_runs,
-                                  plan.level_images):
-        programs = spec.inv_programs if inverse else spec.fwd_programs
-        hl, wl = spec.image_shape
-        if key.ndim == 3:
-            # the temporal pass: the level's volume (both half-bands'
-            # frames) read once, the two half-bands written once
-            total += 2 * (2 * images) * hl * wl * itemsize
-        total += runs * images * scheme_hbm_bytes(programs, (hl, wl),
-                                                  itemsize, spec.block)
-    return total
-
-
-def tiled_hbm_bytes(plan, op: str, itemsize: int) -> int:
-    """Modelled device-memory bytes of one ``op`` execution of a tiled
-    plan: its window plan's modelled bytes (:func:`plan_hbm_bytes` of the
-    stacked windows), plus the halo gather — the image (forward) or the
-    pyramid's planes (inverse) read once, every window written once —
-    plus the stitch — every tile's core read once, the pyramid's planes
-    (forward) or the image (inverse) written once.  A pyramid holds as
-    many samples as its image, and the cores of a grid as many as the
-    grid covers (``T x th x tw``, overhang included)."""
-    from repro_torch.tiling import api as TA  # deferred: tiling -> engine
-    key, grid = plan.key, plan.grid
-    h, w = key.shape[-2:]
-    lead = math.prod(key.shape[:-2])
-    (th, tw), tiles = grid.tile, grid.count
-    image = lead * h * w
-    cores = lead * tiles * th * tw
-    if op == "inverse":
-        mi, L = grid.inv_margin, key.levels
-        sizes = [(th >> (l + 1)) + 2 * (mi >> (l + 1)) for l in range(L)]
-        sizes_w = [(tw >> (l + 1)) + 2 * (mi >> (l + 1)) for l in range(L)]
-        per_tile = (sum(3 * a * b for a, b in zip(sizes, sizes_w))
-                    + sizes[-1] * sizes_w[-1])
-    else:
-        wh, ww = grid.window_shape
-        per_tile = wh * ww
-    windows = lead * tiles * per_tile
-    window_bytes = plan_hbm_bytes(TA.window_plan(plan, op), op)
-    return window_bytes + (image + windows + cores + image) * itemsize
 
 
 def _contiguous(ts):

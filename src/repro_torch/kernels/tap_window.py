@@ -603,8 +603,6 @@ class Kernel:
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tap_window_launch.argtypes = [p, i] + [p] * 8 + [i] * 11 + [p, p]
-    lib.tap_window_launch.restype = i
     lib.tap_window_launch_layout.argtypes = ([p, i] + [p] * 8 + [i] * 12
                                              + [p, p])
     lib.tap_window_launch_layout.restype = i

@@ -1,15 +1,15 @@
 """Fitted cost model: predict wall-clock for unseen plan configurations.
 
 The features are the two quantities the port already models for every
-plan — device-memory bytes moved
-(:func:`repro_torch.kernels.polyphase.plan_hbm_bytes`: the window
+plan — device-memory bytes moved (``plan.executor.hbm_bytes``: the window
 kernel's ``scheme_hbm_bytes`` per level, the fused-pyramid kernels'
 ``pyramid_hbm_bytes``, the unique bytes on ``"torch"``/``"conv"``) and
-kernel launches per execution (``DwtPlan.launches``) —
-and :func:`config_features` computes both exactly as a built plan would
-report them, at the blocks the shared-memory guard picks for the key's
-block target, without building the plan or encoding a table.  Per
-``(backend, fuse)`` group on one device:
+kernel launches per execution (``plan.launches``) — and
+:func:`config_features` computes both with the models of the plan's
+executor (:mod:`repro_torch.engine.executor`), at the blocks the
+shared-memory guard picks for the key's block target, without building
+the plan or encoding a table.  Per ``(backend, fuse)`` group on one
+device:
 
 * with >= :data:`MIN_FIT` records, a least-squares linear model
   ``t ~ a*bytes + b*launches + c`` captures the bandwidth/overhead
@@ -37,22 +37,19 @@ def config_features(key, backend: Optional[str] = None,
                     block: Optional[Tuple[int, int]] = None) -> dict:
     """Cost-model features of one configuration: the modelled
     device-memory bytes of one forward execution (batch dims included)
-    and its kernel launches — ``plan_hbm_bytes(plan)`` and
-    ``plan.launches`` of the plan :func:`~repro_torch.engine.plan.build_plan`
-    would build, computed without building it.  ``backend``/``fuse``/
-    ``tap_opt`` override the key's fields so candidate configurations
-    are featurized from one base key; ``block`` is the block target
-    (None: the block table's entry for the key's device, else the
-    default, as ``build_plan`` picks it).  Tiled keys are featurized as
-    monolithic, as the reference does (the per-group model absorbs the
-    gather and stitch)."""
-    import torch
-
-    from repro_torch import compiler as C
+    and its kernel launches — ``plan.executor.hbm_bytes()`` and
+    ``plan.launches`` of the plan :func:`~repro_torch.engine.plan.
+    build_plan` would build, computed by the models of its executor from
+    level specs resolved without encoding a table.  ``backend``/
+    ``fuse``/``tap_opt`` override the key's fields so candidate
+    configurations are featurized from one base key; ``block`` is the
+    block target (None: the block table's entry for the key's device,
+    else the default, as ``build_plan`` picks it).  Tiled keys are
+    featurized as monolithic, as the reference does (the per-group model
+    absorbs the gather and stitch)."""
     from repro_torch.engine import backends as B
+    from repro_torch.engine import executor as X
     from repro_torch.engine import plan as P
-    from repro_torch.kernels import polyphase as PP
-    from repro_torch.kernels import tap_window as TW
 
     key = dataclasses.replace(
         key, backend=backend if backend is not None else key.backend,
@@ -62,40 +59,18 @@ def config_features(key, backend: Optional[str] = None,
     if (key.packet is not None or key.ndim == 3) and key.fuse == "pyramid":
         key = dataclasses.replace(key, fuse="levels")   # build_plan demotes
     bk = B.get_backend(key.backend)
-    h, w = key.shape[-2], key.shape[-1]
-    itemsize = getattr(torch, key.dtype).itemsize
-    numel = math.prod(key.shape)
-    steps = P.scheme_steps(key.wavelet, key.scheme, key.optimize, False)
-    runs, images = P.level_runs(key), P.level_images(key)
-    per_level = [len(steps) if key.fuse == "none" else 1] * key.levels
-    level_launches = sum(r * n for r, n in zip(runs, per_level))
-    if not bk.window_kernel:
-        return {"hbm_bytes": 2 * numel * itemsize,
-                "launches": level_launches if key.backend == "conv" else 0}
-    target = block if block is not None else P.pick_block_target(key)
+    target = P.block_target_of(key, bk, block)
     if key.fuse == "pyramid" and bk.pyramid_kernel:
-        _, _, fwd_kprogs, _, blocks, why = P.pyramid_blocks(key, h, w,
-                                                            target)
+        _, _, fwd_kprogs, _, blocks, why = P.pyramid_blocks(
+            key, key.shape[-2], key.shape[-1], target)
         if why is None:
-            per_image = PP.pyramid_hbm_bytes(
-                (h, w), itemsize, blocks, [p.halo for p in fwd_kprogs])
-            return {"hbm_bytes": per_image.modelled * (numel // (h * w)),
-                    "launches": 1}
-    opt, pfuse = bk.program_opt(key), bk.program_fuse(key)
-    fwd = C.compile_scheme_programs(key.wavelet, key.scheme, key.optimize,
-                                    False, opt, pfuse)
-    inv = C.compile_scheme_programs(key.wavelet, key.scheme, False, True,
-                                    opt, pfuse)
-    total = 0
-    for l, (r, n) in enumerate(zip(runs, images)):
-        hl, wl = h >> l, w >> l
-        blk = TW.fit_block(fwd + inv, hl // 2, wl // 2, target)
-        if key.ndim == 3:
-            # the temporal pass: the level's volume read once, its two
-            # half-bands written once (as plan_hbm_bytes counts it)
-            total += 2 * (2 * n) * hl * wl * itemsize
-        total += r * n * PP.scheme_hbm_bytes(fwd, (hl, wl), itemsize, blk)
-    return {"hbm_bytes": int(total), "launches": level_launches}
+            return {"hbm_bytes": X.Pyramid.model_bytes(key, blocks,
+                                                       fwd_kprogs),
+                    "launches": X.Pyramid.LAUNCHES}
+    specs = P.resolve_levels(key, bk, target)
+    kind = X.kind(key)
+    return {"hbm_bytes": kind.model_bytes(bk, key, specs, "forward"),
+            "launches": kind.model_launches(bk, key, specs)}
 
 
 @dataclasses.dataclass

@@ -1,11 +1,10 @@
 """Efficiency attribution: join measured time with the analytic models.
 
 The port models, per plan, the two quantities the paper's measurement
-argument is built on — device-memory bytes moved
-(:func:`repro_torch.kernels.polyphase.plan_hbm_bytes`, the same model the
-chip script divides by) and in-kernel MACs (the compiled tap programs).
-This module divides a measured time by them and publishes the quotients
-as gauges:
+argument is built on — device-memory bytes moved and in-kernel MACs —
+through its executor (``plan.executor.hbm_bytes``, the same model the
+chip script divides by, and ``plan.executor.macs``).  This module
+divides a measured time by them and publishes the quotients as gauges:
 
 * ``repro_achieved_gbps``       — modelled bytes / measured seconds,
 * ``repro_achieved_macs_per_s`` — compiled MACs / measured seconds,
@@ -58,22 +57,7 @@ def plan_macs(plan, op: str = "forward") -> Optional[int]:
     matrices (``"torch"`` under ``tap_opt="off"``: no compiled programs
     to count).  A tiled plan's MACs are its window plan's (the halo
     recompute included)."""
-    from repro_torch import compiler as C
-    if plan.grid is not None:
-        from repro_torch.tiling import api as TA  # deferred: tiling->engine
-        plan = TA.window_plan(plan, op)
-    total = 0
-    for spec, runs, images in zip(plan.level_specs, plan.level_runs,
-                                  plan.level_images):
-        programs = (spec.inv_programs if op == "inverse"
-                    else spec.fwd_programs)
-        if programs is None:
-            return None
-        hp, wp = spec.plane_shape
-        # program MACs are per polyphase position (4 output samples)
-        total += (C.program_stats(programs)["macs"] * hp * wp * runs
-                  * images)
-    return total
+    return plan.executor.macs(op)
 
 
 def plan_cost_inputs(plan, op: str = "forward") -> Optional[dict]:
@@ -84,11 +68,10 @@ def plan_cost_inputs(plan, op: str = "forward") -> Optional[dict]:
     cache = plan.__dict__.setdefault("_attr_inputs", {})
     if op in cache:
         return cache[op] or None    # {} sentinel = "tried, failed"
-    from repro_torch.kernels import polyphase as PP
     try:
-        inputs = {"hbm_bytes": PP.plan_hbm_bytes(plan, op),
+        inputs = {"hbm_bytes": plan.executor.hbm_bytes(op),
                   "launches": plan.launches,
-                  "macs": plan_macs(plan, op)}
+                  "macs": plan.executor.macs(op)}
     except Exception:
         # attribution is best-effort observability: a plan the analytic
         # models cannot featurize must not take execution down

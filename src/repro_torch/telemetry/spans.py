@@ -314,7 +314,7 @@ def device_span(name: str, device, **labels):
     :func:`span` is there.
 
         with device_span("execute.forward", plan.key.device, fuse="levels"):
-            out = plan._forward(x)
+            out = plan.run("forward", x)
     """
     if not CONFIG.spans_on:
         if _profiler._is_profiler_enabled and CONFIG.counters_on \

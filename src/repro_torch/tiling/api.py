@@ -1,4 +1,5 @@
-"""Tiled transform API: ``dwt2_tiled`` / ``idwt2_tiled`` + plan executors.
+"""Tiled transform API: ``dwt2_tiled`` / ``idwt2_tiled`` + the tiled
+plan's executor.
 
 A tiled plan is a thin orchestration layer over the monolithic engine:
 the grid planner (:mod:`repro_torch.tiling.grid`) derives exact halo
@@ -38,11 +39,14 @@ Transports:
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
+from repro_torch import engine as E
 from repro_torch import telemetry as T
+from repro_torch.engine import executor as X
 from repro_torch.engine.pyramid import Pyramid
 from repro_torch.faults import inject as FI
 from repro_torch.tiling import exchange as EX
@@ -52,7 +56,6 @@ TRANSPORTS = ("gather", "dist")
 
 def _window_plan(key, shape):
     """Monolithic plan for the stacked tile windows, via the plan cache."""
-    from repro_torch import engine as E  # deferred: engine <-> tiling cycle
     return E.get_plan(wavelet=key.wavelet, scheme=key.scheme,
                       levels=key.levels, shape=shape, dtype=key.dtype,
                       backend=key.backend, optimize=key.optimize,
@@ -65,29 +68,43 @@ def window_plan(plan, op: str = "forward"):
     """The window plan one ``op`` execution of tiled ``plan`` runs: the
     grid's windows (inverse margins for ``"inverse"``) stacked onto the
     plan's batch dims, fetched from the plan cache."""
-    key, grid = plan.key, plan.grid
-    wshape = grid.inv_window_shape if op == "inverse" else grid.window_shape
-    return _window_plan(key, key.shape[:-2] + (grid.count,) + wshape)
+    return plan.executor.window_plan(op)
 
 
-def make_tiled_forward(plan):
-    """Forward executor of a tiled plan: gather windows -> batched window
-    transform -> stitch per-level cores."""
-    key, grid = plan.key, plan.grid
-    levels = key.levels
-    index = EX.WindowIndex(grid, key.device)
+class Tiled(X.Executor):
+    """A tiled plan: gather the tile windows, run them as one batched
+    execution of a monolithic window plan, stitch the per-level cores.
+    Its launches, MACs and kernels to build are its window plans'.  The
+    index tensors are built and the window plans fetched at first use: a
+    plan fetched only for its grid geometry (stream_dwt2, the dist
+    transport) builds neither."""
 
-    def run(x):
-        wplan = window_plan(plan, "forward")
+    def __init__(self, plan, backend):
+        super().__init__(plan, backend)
+        self.grid = plan.grid
+        self.index = EX.WindowIndex(self.grid, self.key.device)
+
+    def window_plan(self, op: str = "forward"):
+        key, grid = self.key, self.grid
+        wshape = (grid.inv_window_shape if op == "inverse"
+                  else grid.window_shape)
+        return _window_plan(key, key.shape[:-2] + (grid.count,) + wshape)
+
+    def forward(self, x):
+        """Gather windows -> batched window transform -> stitch per-level
+        cores."""
+        key, grid = self.key, self.grid
+        levels = key.levels
+        wplan = self.window_plan("forward")
         with T.device_span("tile.halo_gather", key.device, op="forward",
                            tiles=grid.count):
             FI.maybe_inject("tiling.halo_gather", op="forward",
                             tiles=grid.count)
-            wins = EX.gather_windows(x, grid, index)
+            wins = EX.gather_windows(x, grid, self.index)
         with T.device_span("tile.window_transform", key.device,
                            op="forward", tiles=grid.count,
                            backend=key.backend):
-            wll, wdetails = wplan._forward(wins)
+            wll, wdetails = wplan.run("forward", wins)
         with T.device_span("tile.stitch", key.device, op="forward",
                            tiles=grid.count):
             ll = EX.stitch_plane(wll, grid, levels - 1)
@@ -97,37 +114,68 @@ def make_tiled_forward(plan):
                 for k, det in enumerate(wdetails))
         return ll, details
 
-    return run
-
-
-def make_tiled_inverse(plan):
-    """Inverse executor of a tiled plan: gather per-level subband windows
-    (inverse margins) -> batched window inverse -> stitch image cores."""
-    key, grid = plan.key, plan.grid
-    levels = key.levels
-    index = EX.WindowIndex(grid, key.device)
-
-    def run(ll, details):
-        wplan = window_plan(plan, "inverse")
+    def inverse(self, ll, details):
+        """Gather per-level subband windows (inverse margins) -> batched
+        window inverse -> stitch image cores."""
+        key, grid = self.key, self.grid
+        levels = key.levels
+        wplan = self.window_plan("inverse")
         with T.device_span("tile.halo_gather", key.device, op="inverse",
                            tiles=grid.count):
             FI.maybe_inject("tiling.halo_gather", op="inverse",
                             tiles=grid.count)
-            wll = EX.gather_plane_windows(ll, grid, levels - 1, index)
+            wll = EX.gather_plane_windows(ll, grid, levels - 1, self.index)
             wdet = tuple(
                 tuple(EX.gather_plane_windows(d, grid, levels - 1 - k,
-                                              index)
+                                              self.index)
                       for d in det)
                 for k, det in enumerate(details))
         with T.device_span("tile.window_transform", key.device,
                            op="inverse", tiles=grid.count,
                            backend=key.backend):
-            xw = wplan._inverse(wll, wdet)
+            xw = wplan.run("inverse", wll, wdet)
         with T.device_span("tile.stitch", key.device, op="inverse",
                            tiles=grid.count):
             return EX.stitch_plane(xw, grid, 0, inverse=True)
 
-    return run
+    def launches(self) -> int:
+        return self.window_plan("forward").launches
+
+    def macs(self, op: str = "forward"):
+        return self.window_plan(op).executor.macs(op)
+
+    def hbm_bytes(self, op: str = "forward") -> int:
+        """The window plan's modelled bytes, plus the halo gather — the
+        image (forward) or the pyramid's planes (inverse) read once,
+        every window written once — plus the stitch — every tile's core
+        read once, the pyramid's planes (forward) or the image (inverse)
+        written once.  A pyramid holds as many samples as its image, and
+        the cores of a grid as many as the grid covers (``T x th x tw``,
+        overhang included)."""
+        key, grid = self.key, self.grid
+        itemsize = getattr(torch, key.dtype).itemsize
+        h, w = key.shape[-2:]
+        lead = math.prod(key.shape[:-2])
+        (th, tw), tiles = grid.tile, grid.count
+        image = lead * h * w
+        cores = lead * tiles * th * tw
+        if op == "inverse":
+            mi, L = grid.inv_margin, key.levels
+            sizes = [(th >> (l + 1)) + 2 * (mi >> (l + 1)) for l in range(L)]
+            sizes_w = [(tw >> (l + 1)) + 2 * (mi >> (l + 1))
+                       for l in range(L)]
+            per_tile = (sum(3 * a * b for a, b in zip(sizes, sizes_w))
+                        + sizes[-1] * sizes_w[-1])
+        else:
+            wh, ww = grid.window_shape
+            per_tile = wh * ww
+        windows = lead * tiles * per_tile
+        return (self.window_plan(op).executor.hbm_bytes(op)
+                + (image + windows + cores + image) * itemsize)
+
+    def prepare(self, device) -> None:
+        for op in ("forward", "inverse"):
+            self.window_plan(op).prepare()
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +262,6 @@ def _dist_setup(block_shape, dtype, wavelet, levels, scheme, tiles,
                 mesh, device, inverse: bool):
     """The tiled plan of the global image (for its grid) and the window
     plan every rank runs, after the transport's preconditions."""
-    from repro_torch import engine as E
     from repro_torch.core.transform import _dtype_name
     if mesh is None:
         raise ValueError("transport='dist' requires a mesh (a TileMesh of "
@@ -248,7 +295,7 @@ def _dwt2_dist(x, wavelet, levels, scheme, tiles, optimize, backend, fuse,
                               tiles, optimize, backend, fuse, boundary,
                               compute_dtype, tap_opt, mesh, dev, False)
     win = EX.shard_halo_pad(x, grid.margin, mesh)
-    wll, wdetails = wplan._forward(win)
+    wll, wdetails = wplan.run("forward", win)
     ll = EX.extract_core(wll, grid, levels - 1).contiguous()
     details = [tuple(EX.extract_core(d, grid, levels - 1 - k).contiguous()
                      for d in det)
@@ -272,5 +319,5 @@ def _idwt2_dist(pyr, wavelet, scheme, tiles, optimize, backend, fuse,
         tuple(EX.shard_halo_pad(_on(d, dev), mi >> (levels - k), mesh)
               for d in det)
         for k, det in enumerate(pyr.details))
-    xw = wplan._inverse(wll, wdet)
+    xw = wplan.run("inverse", wll, wdet)
     return xw[mi:mi + th, mi:mi + tw].contiguous()

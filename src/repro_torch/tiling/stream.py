@@ -182,7 +182,7 @@ def stream_dwt2(image, *, wavelet: str = "cdf97", levels: int = 1,
         def band_fn(wins):
             """One band: (nc, wh, ww) windows -> each output plane's rows
             of the band, (ch, W_l) contiguous, in ``plane_levels`` order."""
-            wll, wdetails = wplan._forward(wins)
+            wll, wdetails = wplan.run("forward", wins)
             planes = [wll] + [d for det in wdetails for d in det]
             rows = []
             for t, lvl in zip(planes, plane_levels):

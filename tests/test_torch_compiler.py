@@ -21,7 +21,7 @@ from repro_torch import compiler as TC
 from repro_torch.compiler import conv as TCV
 from repro_torch.convert import tap_program_from_fields
 from repro_torch.core import optimize as TO
-from repro_torch.engine.plan import scheme_steps as t_scheme_steps
+from repro_torch.kernels.polyphase import scheme_steps as t_scheme_steps
 
 WAVELETS = ("cdf53", "cdf97", "dd137")
 COMBOS = list(itertools.product((False, True), (False, True),

@@ -1031,3 +1031,43 @@ def test_rev53_runs_the_kernel_through_the_plan(cuda_device):
         assert torch.equal(a, b)
     assert torch.equal(rec, x)
     assert degrade.stats()["fallbacks"] == hops
+
+
+def test_prepare_builds_and_uploads_what_a_volume_launches(cuda_device,
+                                                           monkeypatch):
+    """``prepare()`` of a (16, 64, 64) ``dwt3`` plan on "cuda" loads K1's
+    and the temporal lifting kernel's libraries and puts their tables on
+    the card; the first execution then builds and uploads nothing."""
+    from repro_torch import engine as TE
+    from repro_torch.compiler import temporal as TP
+    from repro_torch.kernels import temporal_lift as TL
+    for lib in (TW.LIBRARY, TL.LIBRARY):
+        monkeypatch.setattr(lib, "_lib", None)
+    lifts = [TL.encode(prog, torch.float32)
+             for prog in (TP.compile_temporal("cdf97"),
+                          TP.compile_temporal("cdf97", inverse=True))]
+    for lift in lifts:
+        monkeypatch.setattr(lift, "_tables", {})
+    plan = TE.build_plan(TE.PlanKey(
+        wavelet="cdf97", scheme="ns-polyconv", levels=2, shape=(16, 64, 64),
+        dtype="float32", backend="cuda", optimize=False, fuse="none",
+        boundary="periodic", ndim=3, device=str(cuda_device)))
+    assert plan.prepare() is plan
+    assert TW.LIBRARY._lib is not None and TL.LIBRARY._lib is not None
+    tables = lifts + [w for s in plan.level_specs
+                      for w in s.fwd_windows + s.inv_windows]
+    uploaded = [dict(t._tables) for t in tables]
+    assert all(list(u) == [cuda_device] for u in uploaded)
+
+    def refuse(self):
+        raise AssertionError(f"{self.source.name} built at first execute")
+    monkeypatch.setattr(TW.KernelLibrary, "_build", refuse)
+    before = TL.KERNEL.launches
+    x = torch.randn(16, 64, 64, device=cuda_device)
+    rec = plan.execute_inverse(plan.execute(x))
+    torch.cuda.synchronize()
+    assert TL.KERNEL.launches - before == 4
+    for t, u in zip(tables, uploaded):
+        assert t._tables.keys() == u.keys()
+        assert all(t._tables[d] is u[d] for d in u)
+    torch.testing.assert_close(rec, x, **ROUNDTRIP_TOL)

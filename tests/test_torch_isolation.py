@@ -5,6 +5,7 @@ profiler, a CPU server and a compressed train step included — builds
 nothing (each CUDA source is compiled at its kernels' first launch).
 The import and the source scan cover every module of the port, the MoE,
 RWKV6 and Mamba2 modules and the example entry points among them."""
+import ast
 import os
 import re
 import subprocess
@@ -114,6 +115,41 @@ def test_subprocess_import_pulls_in_no_jax_and_no_reference(tmp_path):
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_source_imports_no_jax_and_no_reference(path):
     hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path} imports {hits}"
+
+
+#: the port's lower layers, and the layers above them they may not import
+LOWER = ("kernels", "compiler", "telemetry")
+ABOVE = tuple(f"repro_torch.{m}" for m in ("engine", "tiling", "profiler",
+                                           "serve"))
+
+
+def _imports(path: Path):
+    """Every module an import statement of ``path`` names, at any depth
+    (a function's deferred imports included), relative ones resolved;
+    ``from a import b`` names both ``a`` and ``a.b``."""
+    package = ".".join(path.relative_to(PORT.parent).parts[:-1])
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            if node.level:
+                base = package.rsplit(".", node.level - 1)[0]
+                module = f"{base}.{module}" if module else base
+            yield module
+            yield from (f"{module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize(
+    "path", [p for d in LOWER for p in sorted((PORT / d).glob("*.py"))],
+    ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_lower_layers_import_nothing_above_them(path):
+    """kernels/, compiler/ and telemetry/ sit below the engine: none of
+    their modules imports the engine, tiling, the profiler or the server,
+    at module top or deferred inside a function."""
+    hits = sorted({m for m in _imports(path) if m in ABOVE
+                   or m.startswith(tuple(a + "." for a in ABOVE))})
     assert not hits, f"{path} imports {hits}"
 
 

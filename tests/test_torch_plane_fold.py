@@ -223,9 +223,9 @@ def test_wrapper_image_layouts_and_checks():
 
 
 def test_bytes_model_drops_the_split_and_merge():
-    """plan_hbm_bytes on the per-level "cuda" path: the window kernel's
-    launches alone, each level's scheme_hbm_bytes with no split or merge
-    pass; asked for, the pass adds one read and one write of the image."""
+    """plan.executor.hbm_bytes on the per-level "cuda" path: the window
+    kernel's launches alone, each level's scheme_hbm_bytes with no split
+    or merge pass."""
     plan = TE.get_plan(shape=(2, 64, 64), levels=2, fuse="none",
                        cache=TE.PlanCache(), **CPU)
     for op, attr in (("forward", "fwd_programs"), ("inverse",
@@ -233,9 +233,4 @@ def test_bytes_model_drops_the_split_and_merge():
         want = sum(2 * PP.scheme_hbm_bytes(getattr(s, attr), s.image_shape,
                                            4, s.block)
                    for s in plan.level_specs)
-        assert PP.plan_hbm_bytes(plan, op) == want
-    s = plan.level_specs[0]
-    assert PP.scheme_hbm_bytes(s.fwd_programs, (64, 64), 4, s.block,
-                               split_merge=True) - \
-        PP.scheme_hbm_bytes(s.fwd_programs, (64, 64), 4, s.block) == \
-        2 * 64 * 64 * 4
+        assert plan.executor.hbm_bytes(op) == want

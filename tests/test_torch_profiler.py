@@ -27,7 +27,6 @@ from repro_torch import telemetry as T
 from repro_torch.engine import autotune as AT
 from repro_torch.engine import backends as TB
 from repro_torch.faults import inject as PFJ
-from repro_torch.kernels import polyphase as PP
 from repro_torch.kernels import tap_window as TW
 from repro_torch.profiler import auto as PA
 from repro_torch.profiler import store as PST
@@ -380,13 +379,13 @@ _FEATURE_KEYS = (
 @pytest.mark.parametrize("kw", _FEATURE_KEYS,
                          ids=lambda kw: "-".join(str(v) for v in kw.values()))
 def test_config_features_equal_the_built_plan(kw, monkeypatch):
-    """config_features(key) is plan_hbm_bytes(plan) and plan.launches of
+    """config_features(key) is plan.executor.hbm_bytes() and plan.launches of
     the plan build_plan makes — computed without building it or encoding
     a table."""
     key = TE.PlanKey(wavelet="cdf97", dtype="float32", optimize=False,
                      boundary="periodic", device="cpu", **kw)
     plan = TE.build_plan(key)
-    want = {"hbm_bytes": PP.plan_hbm_bytes(plan),
+    want = {"hbm_bytes": plan.executor.hbm_bytes(),
             "launches": plan.launches}
 
     def refuse(*a, **k):
@@ -403,7 +402,7 @@ def test_config_features_follow_packets_fallbacks_and_the_table(
     pk = TE.get_plan(shape=(64, 64), packet="full:2", backend="cuda",
                      fuse="levels", device="cpu", cache=TE.PlanCache())
     assert PF.config_features(pk.key) == {
-        "hbm_bytes": PP.plan_hbm_bytes(pk), "launches": pk.launches}
+        "hbm_bytes": pk.executor.hbm_bytes(), "launches": pk.launches}
     # a budget no level fits: the pyramid key runs (and is featurized)
     # as "levels"
     monkeypatch.setenv("REPRO_TORCH_PYRAMID_SMEM_LIMIT", "4096")
@@ -411,7 +410,7 @@ def test_config_features_follow_packets_fallbacks_and_the_table(
     plan = TE.build_plan(key)
     assert plan.pyramid is None and plan.fallback
     assert PF.config_features(key) == {
-        "hbm_bytes": PP.plan_hbm_bytes(plan), "launches": plan.launches}
+        "hbm_bytes": plan.executor.hbm_bytes(), "launches": plan.launches}
     monkeypatch.delenv("REPRO_TORCH_PYRAMID_SMEM_LIMIT")
     # a table entry moves the blocks of both
     AT.save_entry("ns-polyconv", (64, 64), "levels", "cuda", (8, 8),
@@ -419,7 +418,7 @@ def test_config_features_follow_packets_fallbacks_and_the_table(
     key = _key(shape=(2, 64, 64), backend="cuda", fuse="levels")
     plan = TE.build_plan(key)
     assert plan.level_specs[0].block == (8, 8)
-    assert PF.config_features(key)["hbm_bytes"] == PP.plan_hbm_bytes(plan)
+    assert PF.config_features(key)["hbm_bytes"] == plan.executor.hbm_bytes()
 
 
 def test_cost_model_fit_and_predict_synthetic():
@@ -675,10 +674,20 @@ def test_auto_cache_key_stays_auto(store):
     assert delta == 1                      # one resolution, not two
 
 
-def test_auto_backend_never_executes_directly():
-    bk = TB.get_backend("auto")
-    with pytest.raises(ValueError):
-        bk.make_forward(None)
+def test_auto_backend_never_executes_directly(monkeypatch):
+    """The executor is chosen once, in build_plan: an "auto" key resolves
+    to a concrete backend first, and only that plan gets an executor."""
+    from repro_torch.engine import executor as TX
+    made = []
+    real = TX.Executor.__init__
+
+    def record(self, plan, backend):
+        made.append(backend.name)
+        real(self, plan, backend)
+    monkeypatch.setattr(TX.Executor, "__init__", record)
+    plan = TE.build_plan(_key(backend="auto"))
+    assert made == [plan.key.backend] and "auto" not in made
+    assert plan.executor.backend is TB.get_backend(plan.key.backend)
     assert TB.UNPORTED_BACKENDS == ()
 
 

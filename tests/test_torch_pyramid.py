@@ -38,7 +38,7 @@ from repro_torch import compiler as TC
 from test_torch_window import walk_table
 from repro_torch import engine as TE
 from repro_torch.engine import plan as TPLAN
-from repro_torch.engine.plan import scheme_steps as t_scheme_steps
+from repro_torch.kernels.polyphase import scheme_steps as t_scheme_steps
 from repro_torch.kernels import polyphase as TPP
 from repro_torch.kernels import pyramid_window as PW
 from repro_torch.kernels import tap_window as TW

@@ -239,7 +239,7 @@ def test_host_failure_of_a_cpu_plan_degrades(monkeypatch):
 
     def failed(x):
         raise RuntimeError("host-side failure")
-    monkeypatch.setattr(plan, "_forward", failed)
+    monkeypatch.setattr(plan.executor, "forward", failed)
     pyr = plan.execute(x)
     want = dwt2(x, levels=1, backend="torch", fuse="levels")
     assert torch.allclose(pyr.ll, want.ll, rtol=1e-3, atol=1e-4)

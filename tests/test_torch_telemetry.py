@@ -608,11 +608,11 @@ def test_attribution_bytes_are_the_chip_scripts_model():
         assert T.plan_cost_inputs(lv, op)["hbm_bytes"] == 2 * want
     py = TE.get_plan(backend="cuda", fuse="pyramid", **kw)
     pw = py.pyramid.fwd_kernel
-    assert PP.plan_hbm_bytes(py, "forward") == 2 * PP.pyramid_hbm_bytes(
+    assert py.executor.hbm_bytes("forward") == 2 * PP.pyramid_hbm_bytes(
         (64, 64), 4, pw.level_blocks, [p.halo for p in pw.programs]
     ).modelled
     tp = TE.get_plan(backend="torch", fuse="levels", **kw)
-    assert PP.plan_hbm_bytes(tp, "inverse") == 2 * 2 * 64 * 64 * 4
+    assert tp.executor.hbm_bytes("inverse") == 2 * 2 * 64 * 64 * 4
     # a 3-D level: K1 on both temporal half-bands (T >> (l + 1) frames
     # each) plus the temporal pass over the level's volume
     p3 = TE.get_plan(backend="cuda", shape=(1, 8, 32, 32), ndim=3,
@@ -622,7 +622,7 @@ def test_attribution_bytes_are_the_chip_scripts_model():
                                            4, s.block)
                + 2 * (2 * n) * s.image_shape[0] * s.image_shape[1] * 4
                for s, n in zip(p3.level_specs, (4, 2)))
-    assert PP.plan_hbm_bytes(p3, "forward") == want
+    assert p3.executor.hbm_bytes("forward") == want
 
 
 def test_spans_mode_feeds_the_live_roofline():

@@ -43,7 +43,6 @@ from repro_torch import telemetry as T
 from repro_torch.faults import inject as FJ
 from repro_torch.faults import plan as FP
 from repro_torch.faults.policy import RETRIES
-from repro_torch.kernels import polyphase as PP
 from repro_torch.tiling import (CheckpointMismatch, TileGrid,
                                 open_checkpoint, pyramid_margin,
                                 stream_dwt2, validate_geometry)
@@ -304,14 +303,14 @@ def test_tiled_hbm_bytes_model():
     g = plan.grid
     image, cores = 2 * 100 * 120, 2 * 9 * 48 * 48
     wh, ww = g.window_shape
-    fwd = PP.plan_hbm_bytes(TA.window_plan(plan, "forward"), "forward")
-    assert PP.plan_hbm_bytes(plan, "forward") == fwd + 4 * (
+    fwd = TA.window_plan(plan, "forward").executor.hbm_bytes("forward")
+    assert plan.executor.hbm_bytes("forward") == fwd + 4 * (
         image + 2 * 9 * wh * ww + cores + image)
     mi = g.inv_margin
     win = [(48 >> (l + 1)) + 2 * (mi >> (l + 1)) for l in range(2)]
     per_tile = 3 * win[0] ** 2 + 3 * win[1] ** 2 + win[1] ** 2
-    inv = PP.plan_hbm_bytes(TA.window_plan(plan, "inverse"), "inverse")
-    assert PP.plan_hbm_bytes(plan, "inverse") == inv + 4 * (
+    inv = TA.window_plan(plan, "inverse").executor.hbm_bytes("inverse")
+    assert plan.executor.hbm_bytes("inverse") == inv + 4 * (
         image + 2 * 9 * per_tile + cores + image)
 
 

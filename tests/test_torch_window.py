@@ -27,7 +27,7 @@ from repro.engine.plan import scheme_steps as j_scheme_steps
 from repro.kernels import polyphase as JPP
 
 from repro_torch import compiler as TC
-from repro_torch.engine.plan import scheme_steps as t_scheme_steps
+from repro_torch.kernels.polyphase import scheme_steps as t_scheme_steps
 from repro_torch.kernels import polyphase as TPP
 from repro_torch.kernels import tap_window as TW
 
